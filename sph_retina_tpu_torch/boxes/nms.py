@@ -1,0 +1,130 @@
+"""Spherical and planar NMS as fixed-shape masked suppression.
+
+1. top-k pre-selection (``nms_pre`` candidates, score-descending),
+2. one (k, k) IoU matrix — the fused CUDA pairwise kernel for the spherical
+   backend, a cheap chart IoU for the planar path,
+3. exact greedy suppression as a few vectorised sweeps over the matrix
+   (classes kept apart by masking it, since spherical boxes cannot use the
+   coordinate-offset trick),
+4. top-``max_num`` of the survivors, returned as fixed-size tensors + mask.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..iou.api import AVAILABLE_BACKENDS, canonical_backend
+from ..ops.sph2pob_iou import sph2pob_iou_pairwise
+from .formator import sph2planar_boxes
+
+NEG_INF = -1e10
+
+
+class NMSResult(NamedTuple):
+    boxes: torch.Tensor    # (max_num, D) spherical degrees
+    scores: torch.Tensor   # (max_num,)
+    labels: torch.Tensor   # (max_num,) int32
+    inds: torch.Tensor     # (max_num,) indices into the input tensors
+    valid: torch.Tensor    # (max_num,) bool
+
+
+def _pairwise_iou(boxes: torch.Tensor, backend: str) -> torch.Tensor:
+    if backend in ("planar", "planar_nms"):
+        planar = sph2planar_boxes(boxes)
+        if planar.shape[-1] != 4:
+            raise NotImplementedError(
+                "planar NMS of rotated (5-dof) boxes needs the rotated-box "
+                "IoU, which this package does not have yet; use "
+                "test_cfg.iou_calculator='sph2pob_efficient'")
+        lt = torch.maximum(planar[:, None, :2], planar[None, :, :2])
+        rb = torch.minimum(planar[:, None, 2:], planar[None, :, 2:])
+        wh = (rb - lt).clamp_min(0.0)
+        inter = wh[..., 0] * wh[..., 1]
+        area = (planar[:, 2] - planar[:, 0]) * (planar[:, 3] - planar[:, 1])
+        return inter / (area[:, None] + area[None, :] - inter + 1e-8)
+    name = canonical_backend(backend)
+    if name not in AVAILABLE_BACKENDS:
+        raise NotImplementedError(
+            f"IoU backend {backend!r} is not available in this package yet; "
+            f"choose 'planar' or one of {AVAILABLE_BACKENDS}")
+    boxes = boxes.float().contiguous()
+    return sph2pob_iou_pairwise(boxes, boxes)
+
+
+def _greedy_suppress(iou: torch.Tensor, valid: torch.Tensor,
+                     thr: float) -> torch.Tensor:
+    """Exact score-descending greedy NMS over a pre-sorted candidate set.
+
+    Greedy NMS is the unique fixpoint of the dominance recurrence
+    ``keep[i] = valid[i] and not any(j < i, keep[j], iou[j, i] > thr)``
+    (unique by strong induction on the score order). Iterating the map from
+    ``keep = valid`` settles the first undecided box every sweep, so it
+    reaches that fixpoint in at most chain-depth sweeps — a handful in
+    practice — each one (k, k) masked reduction. A k-step sequential scan
+    would be k tiny kernels in a row; the price of this form is one
+    host-device synchronisation a sweep, to see whether anything changed.
+    """
+    k = iou.shape[0]
+    dom = (iou > thr).triu(diagonal=1)  # row j can kill column i > j
+    keep = valid
+    for _ in range(k + 1):
+        new = valid & ~(dom & keep[:, None]).any(dim=0)
+        if torch.equal(new, keep):
+            break
+        keep = new
+    return keep
+
+
+def sph_batched_nms(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    idxs: torch.Tensor,
+    *,
+    iou_threshold: float = 0.5,
+    max_num: int = 100,
+    nms_pre: int = 1000,
+    backend: str = "sph2pob_efficient",
+    class_agnostic: bool = False,
+    valid_mask: torch.Tensor | None = None,
+) -> NMSResult:
+    """Per-class greedy NMS with a spherical (or planar-chart) IoU backend.
+
+    Args:
+        boxes: (N, 4|5) spherical boxes, degrees.
+        scores: (N,) confidence scores.
+        idxs: (N,) int class ids (suppression only within a class unless
+            ``class_agnostic``).
+        valid_mask: optional (N,) validity of padded inputs.
+    """
+    n = boxes.shape[0]
+    k = min(nms_pre, n)
+    s = scores if valid_mask is None else torch.where(valid_mask, scores, NEG_INF)
+
+    # stable sort, not topk: equal scores (frequent when the head runs in
+    # bf16) keep their input order, so the greedy order is defined
+    top_scores, order = torch.sort(s, descending=True, stable=True)
+    top_scores, order = top_scores[:k], order[:k]
+    top_boxes = boxes[order]
+    top_idxs = idxs[order]
+
+    iou = _pairwise_iou(top_boxes, backend)
+    if not class_agnostic:
+        same = top_idxs[:, None] == top_idxs[None, :]
+        iou = torch.where(same, iou, 0.0)
+
+    keep = _greedy_suppress(iou, top_scores > NEG_INF / 2, iou_threshold)
+
+    m = min(max_num, k)
+    final_scores, sel = torch.sort(torch.where(keep, top_scores, NEG_INF),
+                                   descending=True, stable=True)
+    final_scores, sel = final_scores[:m], sel[:m]
+    valid = final_scores > NEG_INF / 2
+    return NMSResult(
+        boxes=top_boxes[sel],
+        scores=torch.where(valid, final_scores, 0.0),
+        labels=torch.where(valid, top_idxs[sel], -1).to(torch.int32),
+        inds=order[sel],
+        valid=valid,
+    )

@@ -1,0 +1,85 @@
+"""Carries the JAX package's variables across into the port's ``state_dict``.
+
+``from_flax(params, batch_stats)`` takes the nested dicts of numpy arrays
+that ``utils.publish.load_published`` returns — the layout of the Flax
+modules of the JAX package — and returns a flat ``state_dict`` for
+:class:`~sph_retina_tpu_torch.models.single_stage.SphRetinaNet`:
+
+- conv ``kernel`` (H, W, I, O) -> ``weight`` (O, I, H, W), grouped convs too
+  (both frameworks keep I = in_channels / groups there); ``bias`` as is;
+- batch norm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` ->
+  ``weight``/``bias``/``running_mean``/``running_var``;
+- Flax paths (``backbone/layer1_0/conv1``) -> module paths
+  (``backbone.layer1_0.conv1``); the port's modules carry the same names.
+
+``load_flax_variables`` then loads it strictly: a missing key, an extra key
+or a shape that differs raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _walk(tree: dict, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _walk(v, path + (k,))
+        else:
+            yield path + (k,), np.asarray(v)
+
+
+def from_flax(params: dict, batch_stats: dict | None = None) -> dict:
+    """Flax ``params`` / ``batch_stats`` trees -> flat torch ``state_dict``."""
+    out: dict = {}
+
+    def put(key, value):
+        if key in out:
+            raise KeyError(f"duplicate key {key!r} while converting")
+        out[key] = torch.from_numpy(np.ascontiguousarray(value, np.float32))
+
+    for path, leaf in _walk(params):
+        module, name = ".".join(path[:-1]), path[-1]
+        if name == "kernel":
+            if leaf.ndim != 4:
+                raise ValueError(
+                    f"{'/'.join(path)}: expected an (H, W, I, O) conv kernel, "
+                    f"got shape {leaf.shape}")
+            put(f"{module}.weight", leaf.transpose(3, 2, 0, 1))
+        elif name == "scale":
+            put(f"{module}.weight", leaf)
+        elif name == "bias":
+            put(f"{module}.bias", leaf)
+        else:
+            raise KeyError(f"unknown parameter leaf {'/'.join(path)}")
+    for path, leaf in _walk(batch_stats or {}):
+        module, name = ".".join(path[:-1]), path[-1]
+        if name not in _BN_STATS:
+            raise KeyError(f"unknown batch_stats leaf {'/'.join(path)}")
+        put(f"{module}.{_BN_STATS[name]}", leaf)
+    return out
+
+
+def load_flax_variables(model: torch.nn.Module, params: dict,
+                        batch_stats: dict | None = None) -> None:
+    """Convert and load into ``model``; fails loudly on a missing key, an
+    extra key and a shape mismatch."""
+    state = from_flax(params, batch_stats)
+    own = model.state_dict()
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    if missing or extra:
+        raise KeyError(
+            f"checkpoint does not fit the model: missing {missing[:8]}"
+            f"{'...' if len(missing) > 8 else ''} ({len(missing)}), "
+            f"unexpected {extra[:8]}{'...' if len(extra) > 8 else ''} "
+            f"({len(extra)})")
+    for k, v in state.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(
+                f"shape mismatch at {k}: model {tuple(own[k].shape)} vs "
+                f"checkpoint {tuple(v.shape)}")
+    model.load_state_dict(state, strict=True)

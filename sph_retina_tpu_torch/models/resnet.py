@@ -1,0 +1,168 @@
+"""ResNet backbone (torchvision-compatible topology).
+
+Depth 18/34/50/101/152, multi-level outputs, batch norm that always runs on
+its stored moments (``norm_eval`` semantics), 'pytorch'-style stride
+placement (stride on the 3x3 conv of each bottleneck), ``groups`` /
+``base_width`` for the ResNeXt variants.
+
+Sub-module names follow the variables of the JAX package's Flax modules
+(``layer1_0``, ``downsample_conv``, ``downsample_bn``), so that
+``from_flax`` is a mechanical rename.
+
+Precision: parameters and BN moments stay fp32. A convolution casts its
+weights to the dtype of its input at call time, and the batch norm folds
+into one scale and one shift of that dtype; the network casts the image to
+its working dtype (bf16 by default) once, on entry.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+ARCH_SETTINGS = {
+    18: ("basic", (2, 2, 2, 2)),
+    34: ("basic", (3, 4, 6, 3)),
+    50: ("bottleneck", (3, 4, 6, 3)),
+    101: ("bottleneck", (3, 4, 23, 3)),
+    152: ("bottleneck", (3, 8, 36, 3)),
+}
+
+
+class Conv2d(nn.Conv2d):
+    """Convolution with fp32 parameters that computes in its input's dtype."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm that always uses stored moments (norm_eval semantics)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x):
+        inv = self.weight / torch.sqrt(self.running_var + self.eps)
+        shift = self.bias - self.running_mean * self.weight / torch.sqrt(
+            self.running_var + self.eps)
+        return x * inv.to(x.dtype).view(1, -1, 1, 1) \
+            + shift.to(x.dtype).view(1, -1, 1, 1)
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = Conv2d(in_planes, planes, 3, stride, 1, bias=False)
+        self.bn1 = FrozenBatchNorm(planes)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = FrozenBatchNorm(planes)
+        if downsample:
+            self.downsample_conv = Conv2d(in_planes, planes, 1, stride,
+                                          bias=False)
+            self.downsample_bn = FrozenBatchNorm(planes)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x):
+        identity = x
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.downsample_conv is not None:
+            identity = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(out + identity)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 downsample: bool = False, groups: int = 1,
+                 base_width: int = 64):
+        super().__init__()
+        # torchvision width rule: ResNeXt widens the inner convs
+        # (e.g. groups=32, base_width=4 -> width = planes*2)
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = Conv2d(in_planes, width, 1, bias=False)
+        self.bn1 = FrozenBatchNorm(width)
+        # 'pytorch' style: stride on the 3x3
+        self.conv2 = Conv2d(width, width, 3, stride, 1, groups=groups,
+                            bias=False)
+        self.bn2 = FrozenBatchNorm(width)
+        self.conv3 = Conv2d(width, planes * 4, 1, bias=False)
+        self.bn3 = FrozenBatchNorm(planes * 4)
+        if downsample:
+            self.downsample_conv = Conv2d(in_planes, planes * 4, 1, stride,
+                                          bias=False)
+            self.downsample_bn = FrozenBatchNorm(planes * 4)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x):
+        identity = x
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample_conv is not None:
+            identity = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(out + identity)
+
+
+class ResNet(nn.Module):
+    """ResNet / ResNeXt with multi-level outputs, NCHW in/out."""
+
+    def __init__(self, depth: int = 50,
+                 out_indices: Sequence[int] = (0, 1, 2, 3),
+                 groups: int = 1, base_width: int = 64):
+        super().__init__()
+        block_kind, stage_blocks = ARCH_SETTINGS[depth]
+        if block_kind != "bottleneck" and (groups != 1 or base_width != 64):
+            raise ValueError("groups/base_width require a bottleneck depth "
+                             "(>= 50)")
+        self.out_indices = tuple(out_indices)
+        self.stage_blocks = stage_blocks
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = FrozenBatchNorm(64)
+
+        in_planes, planes = 64, 64
+        self.out_channels = []
+        for stage, n_blocks in enumerate(stage_blocks):
+            stride = 1 if stage == 0 else 2
+            for b in range(n_blocks):
+                if block_kind == "bottleneck":
+                    need_down = b == 0 and (stride != 1
+                                            or in_planes != planes * 4)
+                    block = Bottleneck(in_planes, planes,
+                                       stride if b == 0 else 1, need_down,
+                                       groups, base_width)
+                else:
+                    need_down = b == 0 and (stride != 1 or in_planes != planes)
+                    block = BasicBlock(in_planes, planes,
+                                       stride if b == 0 else 1, need_down)
+                self.add_module(f"layer{stage + 1}_{b}", block)
+                in_planes = planes * block.expansion
+            self.out_channels.append(in_planes)
+            planes *= 2
+
+    def forward(self, x):
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        outs = []
+        for stage, n_blocks in enumerate(self.stage_blocks):
+            for b in range(n_blocks):
+                x = getattr(self, f"layer{stage + 1}_{b}")(x)
+            if stage in self.out_indices:
+                outs.append(x)
+        return tuple(outs)
