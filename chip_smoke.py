@@ -2,37 +2,48 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA Hopper GPU.
 
     python3 chip_smoke.py              # every phase, one card
-    python3 chip_smoke.py --fmad-probe # also: the kernel built with FMA contraction
+    python3 chip_smoke.py --fmad-probe # also: K1 built with FMA contraction
 
-Drives the serving path of ``sph_retina_tpu_torch`` the way a user would —
-``init_detector`` on the shipped rotated RetinaNet-R50-FPN config at full
-width (47 classes, 512x1024, bf16, 5-dof boxes), the HTTP server on an
-ephemeral local port, ``/ping`` and a few ``/predict`` requests — and holds
-every CUDA kernel of that path against its plain PyTorch version on the card.
+Drives the main paths of ``sph_retina_tpu_torch`` the way a user would, on the
+shipped rotated RetinaNet-R50-FPN config at full width (47 classes, 512x1024,
+bf16, 5-dof boxes) — the HTTP server (``/ping`` and a few ``/predict``
+requests), the trainer (``train.main``, a few optimiser steps at batch 4) and
+the IoU tool (``benchmark_iou.main``) — and holds every CUDA kernel of those
+paths against its plain PyTorch version on the card.
 
 Phases, each printing one JSON line; any failure ends the run non-zero:
 
 1. device   name, and name + power limit as nvidia-smi gives them
-2. build    the kernel library from ``sph_retina_tpu_torch/csrc`` with nvcc
-3. kernels  sph2pob_iou_pairwise vs its plain version at the serving, ragged
-            and training shapes (max abs difference <= 1e-4, values finite
-            and in [0, 1]), timed with CUDA events (median after warm-up)
-4. serve    the server answers the requests through the kernel (its launch
-            counter is set to 0 before and read after), the records are well
-            formed, and swapping the plain version in keeps the same boxes;
+2. build    every kernel library from ``sph_retina_tpu_torch/csrc`` with nvcc,
+            side by side
+3. kernels  each kernel vs its plain version at the shapes its paths give it
+            (max abs difference <= 1e-4, values finite and in [0, 1]), timed
+            with CUDA events (median after warm-up), beside its bound
+4. iou_tool the IoU tool runs the aligned kernel (launch counter set to 0
+            before, read after)
+5. serve    the server answers the requests through the pairwise kernel, the
+            records are well formed, and swapping the plain version in keeps
+            the same boxes;
    breakdown  where a steady request's time goes (events, host clock, profiler)
-5. the kernels' summary line, then the last line
+6. train    ``train.main`` takes 6 steps at full width: finite losses, one
+            launch of the pairwise kernel a step at (256, 98208); then, on a
+            fixed batch with warm-up off, the loss falls over 6 steps, the
+            plain version in the kernel's place gives the same labels, and a
+            step's time, memory and device share are read
+7. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
-Weights are random, made with numpy from ``--seed``; no number printed here
-says anything about detection quality. Needs no network; exits non-zero
-without a CUDA device.
+Weights are random, made from ``--seed``; no number printed here says
+anything about detection quality. Needs no network; exits non-zero without a
+CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import math
@@ -40,39 +51,50 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from http.server import ThreadingHTTPServer
+from typing import Callable
 
 import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from sph_retina_tpu_torch import benchmark_iou
+from sph_retina_tpu_torch import train as train_cli
 from sph_retina_tpu_torch.apis import inference_detector, init_detector
 from sph_retina_tpu_torch.boxes import nms as nms_module
+from sph_retina_tpu_torch.data import to_device
 from sph_retina_tpu_torch.data.pipeline import maybe_normalize_images
+from sph_retina_tpu_torch.models import single_stage
 from sph_retina_tpu_torch.ops import _build
-from sph_retina_tpu_torch.ops.fused_iou import sph2pob_iou_pairwise_plain
-from sph_retina_tpu_torch.ops.sph2pob_iou import sph2pob_iou_pairwise
+from sph_retina_tpu_torch.ops.fused_iou import (
+    sph2pob_iou_aligned_plain,
+    sph2pob_iou_pairwise_plain,
+)
+from sph_retina_tpu_torch.ops.sph2pob_iou import (
+    sph2pob_iou_aligned,
+    sph2pob_iou_pairwise,
+)
 from sph_retina_tpu_torch.serve import make_handler
+from sph_retina_tpu_torch.utils.config import apply_overrides, load_config
+from sph_retina_tpu_torch.utils.device import resolve_device
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs",
                       "sph_rotated_retinanet_r50_fpn_120e_pandora.py")
-KERNEL_NAME = "sph2pob_iou_pairwise"
-KERNEL_SOURCE = "sph_retina_tpu_torch/csrc/sph2pob_iou.cu"
-KERNEL_REPLACES = "sph_retina_tpu/ops/pallas_iou.py:134"
-TOLERANCE = 1e-4  # the JAX suite's own tolerance for its Pallas kernel
+TOLERANCE = 1e-4  # the JAX suite's own tolerance for its Pallas kernels
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
 # and the fp32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
-# (N, M, D): serving (once per image), ragged edges, the training shape
-SERVING_SHAPE = (1000, 1000, 5)
-SHAPES = [SERVING_SHAPE, (1000, 1000, 4), (7, 5, 5), (129, 257, 4),
-          (128, 98208, 4)]
-N_REQUESTS = 5
+N_REQUESTS = 3
+TRAIN_STEPS = 6
+TRAIN_BATCH = 4  # samples_per_gpu of the shipped config
+IOU_TOOL_ITERS = 10
 
 
 def emit(obj: dict) -> None:
@@ -91,21 +113,102 @@ def seeded_boxes(n: int, d: int, rng: np.random.Generator) -> np.ndarray:
     return np.stack(cols, axis=1).astype(np.float32)
 
 
-def kernel_inputs(n: int, m: int, d: int, seed: int):
+def _touching_cells(d: int) -> np.ndarray:
+    """A grid of 30-degree cells that touch along exact meridians and
+    parallels on both sides."""
+    return np.array([[t, p, 30.0, 30.0] + [0.0] * (d - 4)
+                     for t in np.arange(30.0, 180.0, 30.0)
+                     for p in np.arange(45.0, 135.0, 30.0)], np.float32)
+
+
+def pairwise_inputs(shape, seed: int):
     """Two seeded box sets with degenerate pairs mixed in: bitwise-identical
-    boxes on the leading diagonal and, where there is room, a grid of cells
-    that touch along exact meridians and parallels on both sides."""
+    boxes on the leading diagonal and, where there is room, the touching
+    cells against each other."""
+    n, m, d = shape
     rng = np.random.default_rng(seed)
     b1, b2 = seeded_boxes(n, d, rng), seeded_boxes(m, d, rng)
     k = max(1, min(n, m) // 8)
     b2[:k] = b1[:k]
-    if min(n, m) >= k + 15:
-        cells = np.array([[t, p, 30.0, 30.0] + [0.0] * (d - 4)
-                          for t in np.arange(30.0, 180.0, 30.0)
-                          for p in np.arange(45.0, 135.0, 30.0)], np.float32)
+    cells = _touching_cells(d)
+    if min(n, m) >= k + len(cells):
         b1[k:k + len(cells)] = cells
         b2[k:k + len(cells)] = cells
     return b1, b2
+
+
+def aligned_inputs(shape, seed: int):
+    """N seeded pairs with degenerate ones mixed in: the first eighth
+    bitwise identical and, where there is room, each touching cell paired
+    with itself and with its neighbour."""
+    n, d = shape
+    rng = np.random.default_rng(seed)
+    b1, b2 = seeded_boxes(n, d, rng), seeded_boxes(n, d, rng)
+    k = max(1, n // 8)
+    b2[:k] = b1[:k]
+    cells = _touching_cells(d)
+    if n >= k + 2 * len(cells):
+        b1[k:k + 2 * len(cells)] = np.concatenate([cells, cells])
+        b2[k:k + 2 * len(cells)] = np.concatenate(
+            [cells, np.roll(cells, 1, axis=0)])
+    return b1, b2
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    """One hand-written kernel: where it lives, what it replaces, how it is
+    called, and the shapes its paths give it."""
+
+    name: str            # the wrapper's name
+    library: str         # csrc/<library>.cu, one shared library
+    replaces: str        # file:line of the TPU kernel
+    device_name: str     # substring of the kernel's name in a profile
+    wrapper: Callable
+    plain: Callable
+    shapes: tuple        # pairwise (N, M, D); aligned (N, D)
+    main_shape: tuple    # the one the summary line's times are for
+    inputs: Callable     # (shape, seed) -> two numpy box sets
+    out_shape: Callable  # shape -> the output's shape
+    n_bytes: Callable    # shape -> bytes moved: inputs read once, output written
+    identical: Callable  # (output, shape) -> IoUs of the identical pairs
+
+    @property
+    def source(self) -> str:
+        return f"sph_retina_tpu_torch/csrc/{self.library}.cu"
+
+
+SERVING_SHAPE = (1000, 1000, 5)       # (N, M, D), once per served image
+ASSIGN_SHAPE = (256, 98208, 5)        # batch 4 x max_gt 64 against the anchors
+TOOL_SHAPE = (1_000_000, 4)           # the IoU tool's default
+KERNELS = (
+    Kernel(
+        name="sph2pob_iou_pairwise", library="sph2pob_iou",
+        replaces="sph_retina_tpu/ops/pallas_iou.py:134",
+        device_name="pairwise_kernel",
+        wrapper=sph2pob_iou_pairwise, plain=sph2pob_iou_pairwise_plain,
+        # serving, ragged edges, half the assignment rows at D=4, assignment
+        shapes=(SERVING_SHAPE, (1000, 1000, 4), (7, 5, 5), (129, 257, 4),
+                (128, 98208, 4), ASSIGN_SHAPE),
+        main_shape=SERVING_SHAPE,
+        inputs=pairwise_inputs,
+        out_shape=lambda s: (s[0], s[1]),
+        n_bytes=lambda s: 4 * ((s[0] + s[1]) * s[2] + s[0] * s[1]),
+        identical=lambda out, s: out.diagonal()[:max(1, min(s[0], s[1]) // 8)],
+    ),
+    Kernel(
+        name="sph2pob_iou_aligned", library="sph2pob_iou_aligned",
+        replaces="sph_retina_tpu/ops/pallas_iou.py:81",
+        device_name="aligned_kernel",
+        wrapper=sph2pob_iou_aligned, plain=sph2pob_iou_aligned_plain,
+        shapes=tuple((n, d) for d in (4, 5)
+                     for n in (1, 130, 98208, 1_000_000)),
+        main_shape=TOOL_SHAPE,
+        inputs=aligned_inputs,
+        out_shape=lambda s: (s[0],),
+        n_bytes=lambda s: 4 * (2 * s[0] * s[1] + s[0]),
+        identical=lambda out, s: out[:max(1, s[0] // 8)],
+    ),
+)
 
 
 def seeded_state_dict(model: torch.nn.Module, seed: int) -> dict:
@@ -168,6 +271,55 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def back_to_back_ms(fn, reps: int) -> float:
+    """Milliseconds a launch when ``reps`` launches are enqueued between one
+    pair of CUDA events: what a launch costs once the queue is full, without
+    the events' own latency that ``median_ms`` carries on small kernels."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profiled(fn, top: int = 10) -> dict:
+    """One profiled call of ``fn``: wall time, device time by kernel name
+    (device-side events only: operator rows repeat their kernels' time), the
+    device's idle share of the wall time, each hand-written kernel's time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    device_us = sum(r[1] for r in rows)
+    by_kernel = {}
+    for k in KERNELS:
+        own = [us for key, us, _ in rows if k.device_name in key]
+        if own:
+            by_kernel[k.name] = sum(own) / 1e3
+    return {
+        "wall_ms": wall_us / 1e3,
+        "device_ms": device_us / 1e3 if rows else None,
+        "device_idle_share": 1.0 - device_us / wall_us if rows else None,
+        "kernel_launches": sum(r[2] for r in rows),
+        "top_device_ms": [
+            {"name": k[:60], "ms": us / 1e3, "calls": n}
+            for k, us, n in sorted(rows, key=lambda r: -r[1])[:top]],
+        "ms_by_kernel": by_kernel,
+    }
+
+
 class _PairOpCounter(TorchDispatchMode):
     """Counts the tensor operations whose result has one element a pair."""
 
@@ -184,24 +336,28 @@ class _PairOpCounter(TorchDispatchMode):
         return out
 
 
-def ops_per_pair(d: int) -> int:
+def ops_per_pair(kernel: Kernel, d: int) -> int:
     """Elementwise fp32 operations (arithmetic, compare, select, sin/cos,
-    sqrt, each counted once) that the plain version spends on one pair;
-    operations on one side's boxes alone are not counted."""
+    sqrt, each counted once) that the kernel's plain version spends on one
+    pair: the tensor operations whose result has one element a pair, counted
+    on 42 pairs. For the pairwise kernel operations on one side's boxes
+    alone are thus left out; for the aligned one every operation is a
+    pair's."""
     rng = np.random.default_rng(0)
-    b1 = torch.from_numpy(seeded_boxes(6, d, rng))
-    b2 = torch.from_numpy(seeded_boxes(7, d, rng))
+    shape = (6, 7, d) if len(kernel.main_shape) == 3 else (42, d)
+    b1 = torch.from_numpy(seeded_boxes(shape[0], d, rng))
+    b2 = torch.from_numpy(seeded_boxes(shape[-2], d, rng))
     with _PairOpCounter(42) as counter:
-        sph2pob_iou_pairwise_plain(b1, b2)
+        kernel.plain(b1, b2)
     return counter.count
 
 
-def bound_ms(n: int, m: int, d: int) -> tuple[float, str, dict]:
+def bound_ms(kernel: Kernel, shape) -> tuple[float, str, dict]:
     """The least time the card could take: the larger of bytes moved (each
     input read once, the output written once) over the memory rate and
     operations over the fp32 rate."""
-    n_bytes = 4 * ((n + m) * d + n * m)
-    n_ops = ops_per_pair(d) * n * m
+    n_bytes = kernel.n_bytes(shape)
+    n_ops = ops_per_pair(kernel, shape[-1]) * math.prod(kernel.out_shape(shape))
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     by_ops = n_ops / PEAK_FP32_OPS_PER_S * 1e3
     detail = {"bytes": n_bytes, "operations": n_ops,
@@ -210,38 +366,46 @@ def bound_ms(n: int, m: int, d: int) -> tuple[float, str, dict]:
         ("operations" if by_ops >= by_bytes else "bytes"), detail
 
 
-def check_kernel_shape(n: int, m: int, d: int, seed: int, reps: int) -> dict:
-    b1_np, b2_np = kernel_inputs(n, m, d, seed)
+def check_kernel_shape(kernel: Kernel, shape, seed: int, reps: int) -> dict:
+    b1_np, b2_np = kernel.inputs(shape, seed)
     b1 = torch.from_numpy(b1_np).cuda()
     b2 = torch.from_numpy(b2_np).cuda()
-    got = sph2pob_iou_pairwise(b1, b2)
+    got = kernel.wrapper(b1, b2)
     torch.cuda.synchronize()
-    want = sph2pob_iou_pairwise_plain(b1, b2)
+    want = kernel.plain(b1, b2)
     torch.cuda.synchronize()
-    if tuple(got.shape) != (n, m) or got.dtype != torch.float32:
-        raise AssertionError(f"kernel output {tuple(got.shape)} {got.dtype}")
+    at = f"{kernel.name} at {tuple(shape)}"
+    if tuple(got.shape) != kernel.out_shape(shape) \
+            or got.dtype != torch.float32:
+        raise AssertionError(f"{at}: output {tuple(got.shape)} {got.dtype}")
     if not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"non-finite IoU at shape {(n, m, d)}")
+        raise AssertionError(f"{at}: non-finite IoU")
     lo, hi = float(got.min()), float(got.max())
     if lo < 0.0 or hi > 1.0:
-        raise AssertionError(f"IoU outside [0, 1] at {(n, m, d)}: {lo}, {hi}")
-    k = max(1, min(n, m) // 8)
-    ident = float(got.diagonal()[:k].min())
+        raise AssertionError(f"{at}: IoU outside [0, 1]: {lo}, {hi}")
+    ident = float(kernel.identical(got, shape).min())
     if ident <= 0.9:  # boxes down to 1 degree wide, jittered by 0.007
-        raise AssertionError(f"identical boxes give IoU {ident}")
+        raise AssertionError(f"{at}: identical boxes give IoU {ident}")
     err = float((got - want).abs().max())
     if not err <= TOLERANCE:
         raise AssertionError(
-            f"kernel differs from its plain version by {err} at {(n, m, d)}")
+            f"{at}: kernel differs from its plain version by {err}")
     del want
-    ms = median_ms(lambda: sph2pob_iou_pairwise(b1, b2), reps)
-    plain = median_ms(lambda: sph2pob_iou_pairwise_plain(b1, b2),
-                      max(5, reps // 4) if n * m > 4_000_000 else reps,
+    pairs = math.prod(kernel.out_shape(shape))
+    ms = median_ms(lambda: kernel.wrapper(b1, b2), reps)
+    queued = back_to_back_ms(lambda: kernel.wrapper(b1, b2), reps)
+    # the kernel's own time on the device, free of launch and event latency
+    on_device = profiled(lambda: kernel.wrapper(b1, b2))["ms_by_kernel"].get(
+        kernel.name)
+    plain = median_ms(lambda: kernel.plain(b1, b2),
+                      max(5, reps // 4) if pairs > 4_000_000 else reps,
                       warmup=1)
-    bound, by, detail = bound_ms(n, m, d)
-    return {"shape": [n, m, d], "max_abs_err": err,
+    bound, by, detail = bound_ms(kernel, shape)
+    return {"shape": list(shape), "max_abs_err": err,
             "bitwise_equal": err == 0.0, "min_identical_iou": ident,
-            "kernel_ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "kernel_ms": ms, "kernel_ms_back_to_back": queued,
+            "kernel_device_ms": on_device,
+            "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, **detail}
 
 
@@ -258,7 +422,7 @@ def fmad_probe(seed: int, reps: int) -> dict:
     fn.restype = ctypes.c_int
     out = {"build_seconds": seconds, "shapes": []}
     for n, m, d in (SERVING_SHAPE, (128, 98208, 4)):
-        b1_np, b2_np = kernel_inputs(n, m, d, seed)
+        b1_np, b2_np = pairwise_inputs((n, m, d), seed)
         b1 = torch.from_numpy(b1_np).cuda()
         b2 = torch.from_numpy(b2_np).cuda()
         res = torch.empty((n, m), dtype=torch.float32, device="cuda")
@@ -303,20 +467,60 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> None:
-    path, seconds, log = _build.build_library("sph2pob_iou")
-    emit({"phase": "build", "library": os.path.relpath(path, ROOT),
-          "nvcc_seconds": seconds, "flags": list(_build.NVCC_FLAGS),
-          "ptxas": [line.strip() for line in log.splitlines()
-                    if "registers" in line or "spill" in line]})
+    """Every kernel library, one nvcc each, all started together."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(lambda k: _build.build_library(k.library),
+                              KERNELS))
+    emit({"phase": "build", "flags": list(_build.NVCC_FLAGS),
+          "libraries": [
+              {"kernel": k.name, "source": k.source,
+               "library": os.path.relpath(path, ROOT), "nvcc_seconds": seconds,
+               "ptxas": [line.strip() for line in log.splitlines()
+                         if "registers" in line or "spill" in line]}
+              for k, (path, seconds, log) in zip(KERNELS, built)]})
 
 
-def phase_kernels(seed: int, reps: int) -> list[dict]:
-    results = [check_kernel_shape(n, m, d, seed + i, reps)
-               for i, (n, m, d) in enumerate(SHAPES)]
+def phase_kernels(seed: int, reps: int) -> dict:
+    """Each kernel against its plain version, shape by shape; returns the
+    results by kernel name."""
+    results = {k.name: [check_kernel_shape(k, shape, seed + i, reps)
+                        for i, shape in enumerate(k.shapes)]
+               for k in KERNELS}
     emit({"phase": "kernels", "tolerance": TOLERANCE,
-          "ops_per_pair": {"4": ops_per_pair(4), "5": ops_per_pair(5)},
+          "ops_per_pair": {k.name: {str(d): ops_per_pair(k, d)
+                                    for d in (4, 5)} for k in KERNELS},
           "shapes": results})
     return results
+
+
+def phase_iou_tool() -> int:
+    """The IoU tool as a user runs it, in process, for both box widths;
+    returns the aligned kernel's launches over the two runs."""
+    sph2pob_iou_aligned.launches = 0
+    runs = []
+    for d in (4, 5):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = benchmark_iou.main([
+                "--size", str(TOOL_SHAPE[0]), "--box-version", str(d),
+                "--iters", str(IOU_TOOL_ITERS), "--kernel"])
+        rows = [json.loads(line) for line in out.getvalue().splitlines()
+                if line.startswith("{")]
+        if rc != 0 or [r["backend"] for r in rows] != ["fused_plain",
+                                                       "kernel_fused"]:
+            raise AssertionError(f"the IoU tool printed {out.getvalue()!r}")
+        if not rows[1]["max_abs_diff"] <= TOLERANCE:
+            raise AssertionError(
+                f"the IoU tool: kernel_fused differs from fused_plain by "
+                f"{rows[1]['max_abs_diff']} at D={d}")
+        runs.append(rows)
+    launches = sph2pob_iou_aligned.launches
+    if launches < 2 * IOU_TOOL_ITERS:
+        raise AssertionError(
+            f"{launches} launches of the aligned kernel over two runs of "
+            f"{IOU_TOOL_ITERS} iterations: the tool did not go through it")
+    emit({"phase": "iou_tool", "kernel_launches": launches, "rows": runs})
+    return launches
 
 
 def check_records(records, det) -> None:
@@ -478,29 +682,244 @@ def phase_breakdown(det, image: np.ndarray, reps: int) -> None:
            "inference_detector_host_ms": statistics.median(host_ms),
            "inference_detector_in_a_new_thread_ms": statistics.median(fresh_ms)}
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        inference_detector(det, image)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only: operator rows repeat their kernels' time
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    device_us = sum(r[1] for r in rows)
-    out["profiled_wall_ms"] = wall_us / 1e3
-    out["profiled_device_ms"] = device_us / 1e3 if rows else None
-    out["device_idle_share"] = 1.0 - device_us / wall_us if rows else None
-    out["device_kernel_launches"] = sum(r[2] for r in rows)
-    out["top_device_ms"] = [
-        {"name": k[:60], "ms": us / 1e3, "calls": n}
-        for k, us, n in sorted(rows, key=lambda r: -r[1])[:8]]
-    iou = [us for k, us, _ in rows if "pairwise_kernel" in k]
-    out["sph2pob_iou_kernel_ms_in_request"] = sum(iou) / 1e3 if iou else None
+    prof = profiled(lambda: inference_detector(det, image))
+    out["profiled_wall_ms"] = prof["wall_ms"]
+    out["profiled_device_ms"] = prof["device_ms"]
+    out["device_idle_share"] = prof["device_idle_share"]
+    out["device_kernel_launches"] = prof["kernel_launches"]
+    out["top_device_ms"] = prof["top_device_ms"][:8]
+    out["sph2pob_iou_kernel_ms_in_request"] = prof["ms_by_kernel"].get(
+        "sph2pob_iou_pairwise")
     emit(out)
+
+
+# --------------------------------------------------------------------------- #
+# training
+# --------------------------------------------------------------------------- #
+def assert_full_width_training(cfg, model, det_cfg, optimizer, device) -> None:
+    """Nothing of the shipped rotated config was narrowed."""
+    got = (cfg["model"]["backbone"]["depth"],
+           cfg["model"]["backbone"]["frozen_stages"],
+           cfg["model"]["num_classes"], cfg["model"]["box_version"],
+           tuple(cfg["img_size"]), cfg["bf16"],
+           cfg["data"]["samples_per_gpu"], cfg["data"]["max_gt"],
+           optimizer.grad_clip, det_cfg.assign_backend,
+           tuple(det_cfg.flat_anchors().shape))
+    want = (50, 1, 47, 5, (512, 1024), True, TRAIN_BATCH, 64, 35.0,
+            "sph2pob_efficient", (ASSIGN_SHAPE[1], 5))
+    if got != want:
+        raise AssertionError(f"not the full-width rotated config: {got}")
+    if next(model.parameters()).device.type != "cuda" \
+            or model.dtype != torch.bfloat16:
+        raise AssertionError("the detector does not train in bf16 on the card")
+    frozen = set(optimizer.frozen_names)
+    if "backbone.layer1_2.conv3.weight" not in frozen \
+            or "backbone.layer2_0.conv1.weight" in frozen \
+            or len(model.backbone.stage_blocks) != 4 \
+            or sum(model.backbone.stage_blocks) != 16:
+        raise AssertionError("frozen stage 1 of a ResNet-50 expected, got "
+                             f"{sorted(frozen)[:4]}...")
+
+
+def train_step_parts(model, det_cfg, optimizer, loader, host_batch,
+                     device, reps: int = 5) -> dict:
+    """Where a training step's wall time goes: each part run on its own
+    between two synchronisations and timed by the host's clock (so a part's
+    time holds its launches' dispatch and the device's work, whichever is
+    longer), median of ``reps``. ``losses`` is ``retina_loss`` less the
+    assignment it contains. The parts add up to more than a step, whose
+    dispatch runs ahead of the device."""
+    anchors = det_cfg.flat_anchors(device)
+    parts = {k: [] for k in ("loader_batch", "h2d", "forward", "assignment",
+                             "losses", "backward", "optimizer")}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(reps):
+        timed("loader_batch", lambda: list(loader.epoch(0)))
+        batch = timed("h2d", lambda: to_device(
+            {k: v for k, v in host_batch.items() if k != "img_id"}, device))
+        gt = (batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"])
+        optimizer.zero_grad()
+        cls, reg = timed("forward", lambda: model(batch["images"]))
+        timed("assignment", lambda: single_stage.anchor_targets(
+            det_cfg, anchors, *gt))
+        losses = timed("losses", lambda: single_stage.retina_loss(
+            det_cfg, cls, reg, anchors, *gt))
+        parts["losses"][-1] -= parts["assignment"][-1]
+        total = losses["loss_cls"] + losses["loss_bbox"]
+        timed("backward", total.backward)
+        timed("optimizer", optimizer.step)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def _recording(fn, calls: list):
+    def wrapper(boxes1, boxes2):
+        calls.append([list(boxes1.shape), list(boxes2.shape)])
+        return fn(boxes1, boxes2)
+    return wrapper
+
+
+def phase_train(seed: int) -> int:
+    """Returns the pairwise kernel's launches over the trainer's steps."""
+    device = resolve_device()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+
+    # (a) the trainer as a user starts it: one epoch of 6 steps
+    built, calls = {}, []
+    build_training = train_cli.build_training
+
+    def capturing(cfg, dev, seed=0):
+        built["cfg"], built["parts"] = cfg, build_training(cfg, dev, seed)
+        return built["parts"]
+
+    train_cli.build_training = capturing
+    single_stage.sph2pob_iou_pairwise = _recording(sph2pob_iou_pairwise, calls)
+    sph2pob_iou_pairwise.launches = 0
+    said = io.StringIO()
+    try:
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "build")) as work:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(said):
+                rc = train_cli.main([
+                    CONFIG, "--synthetic", "--seed", str(seed),
+                    "--max-epochs", "1", "--work-dir", work, "--cfg-options",
+                    f"data.n_synthetic={TRAIN_STEPS * TRAIN_BATCH}",
+                    "log_config.interval=1"])
+            torch.cuda.synchronize()
+            cli_seconds = time.perf_counter() - t0
+            with open(os.path.join(work, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+    finally:
+        train_cli.build_training = build_training
+        single_stage.sph2pob_iou_pairwise = sph2pob_iou_pairwise
+    launches = sph2pob_iou_pairwise.launches
+    if rc != 0 or "training done" not in said.getvalue():
+        raise AssertionError(f"the trainer said {said.getvalue()!r}")
+    model, det_cfg, _, optimizer, _ = built["parts"]
+    assert_full_width_training(built["cfg"], model, det_cfg, optimizer, device)
+    steps = [r for r in records if r["prefix"] == "train"]
+    if [r["step"] for r in steps] != list(range(1, TRAIN_STEPS + 1)):
+        raise AssertionError(f"expected {TRAIN_STEPS} logged steps: {records}")
+    for r in steps:
+        if not all(math.isfinite(r[k]) for k in ("loss", "loss_cls",
+                                                 "loss_bbox")):
+            raise AssertionError(f"a loss is not finite: {r}")
+    if launches != TRAIN_STEPS or optimizer.count != TRAIN_STEPS:
+        raise AssertionError(
+            f"{launches} launches of the pairwise kernel over "
+            f"{optimizer.count} steps: one a step expected")
+    want_call = [list(ASSIGN_SHAPE[::2]), list(ASSIGN_SHAPE[1:])]
+    if any(c != want_call for c in calls) or len(calls) != TRAIN_STEPS:
+        raise AssertionError(f"the kernel was called at {calls}")
+    cli_step_ms = [(b["time"] - a["time"]) * 1e3
+                   for a, b in zip(steps, steps[1:])]
+    out = {"phase": "train", "config": os.path.relpath(CONFIG, ROOT),
+           "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+           "kernel_launches": launches, "kernel_call_shapes": calls[0],
+           "trainable_tensors": len(optimizer.params),
+           "frozen_tensors": len(optimizer.frozen_names),
+           "trainer_seconds": cli_seconds,
+           "trainer_losses": [r["loss"] for r in steps],
+           "trainer_lr_first_last": [optimizer.schedule(0),
+                                     optimizer.schedule(TRAIN_STEPS - 1)],
+           "trainer_step_ms_logged_every_step": statistics.median(cli_step_ms)}
+    del model, optimizer, built
+
+    # (b) a fixed batch repeated, warm-up off for this check only, so that
+    # six steps at the base rate can show the loss falling
+    cfg = apply_overrides(load_config(CONFIG), [
+        "lr_config.warmup_iters=0", f"data.n_synthetic={TRAIN_BATCH}"])
+    model, det_cfg, loader, optimizer, step = train_cli.build_training(
+        cfg, device, seed)
+    (host_batch,) = list(loader.epoch(0))
+    batch = to_device({k: v for k, v in host_batch.items() if k != "img_id"},
+                      device)
+    losses, event_ms, host_ms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        metrics = step(batch)
+        end.record()
+        end.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        event_ms.append(start.elapsed_time(end))
+        losses.append({k: float(v) for k, v in metrics.items()})
+    if not all(math.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    if not losses[-1]["loss"] < losses[0]["loss"]:
+        raise AssertionError(
+            f"the loss did not fall on a fixed batch: {losses}")
+    # steps enqueued back to back, one synchronisation at the end
+    n_free = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_free):
+        metrics = step(batch)
+    torch.cuda.synchronize()
+    free_ms = (time.perf_counter() - t0) * 1e3 / n_free
+    if not math.isfinite(float(metrics["loss"])):
+        raise AssertionError("the loss stopped being finite")
+    peak = torch.cuda.max_memory_allocated()
+
+    # the plain version in the kernel's place: the same targets
+    anchors = det_cfg.flat_anchors(device)
+    gt = (batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"])
+    before = sph2pob_iou_pairwise.launches
+    with_kernel = single_stage.anchor_targets(det_cfg, anchors, *gt)
+    single_stage.sph2pob_iou_pairwise = sph2pob_iou_pairwise_plain
+    try:
+        with_plain = single_stage.anchor_targets(det_cfg, anchors, *gt)
+    finally:
+        single_stage.sph2pob_iou_pairwise = sph2pob_iou_pairwise
+    if sph2pob_iou_pairwise.launches != before + 1:
+        raise AssertionError("the plain run launched the kernel")
+    for name, a, b in zip(with_kernel._fields, with_kernel, with_plain):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"anchor targets differ in {name} between the kernel and "
+                "its plain version")
+    del with_plain
+
+    prof = profiled(lambda: step(batch))
+    parts = train_step_parts(model, det_cfg, optimizer, loader, host_batch,
+                             device)
+    out.update({
+        "fixed_batch_lr": optimizer.last_lr,
+        "fixed_batch_note": "warm-up off (lr_config.warmup_iters=0) for this "
+                            "check only; the trainer above ran the config's "
+                            "own warm-up",
+        "fixed_batch_losses": losses,
+        "first_step_ms": {"events": event_ms[0], "host": host_ms[0]},
+        "steady_step_ms": {"events": statistics.median(event_ms[1:]),
+                           "host": statistics.median(host_ms[1:])},
+        "step_ms_enqueued_back_to_back": free_ms,
+        "peak_memory_bytes": peak,
+        "num_pos": int(with_kernel.num_pos),
+        "targets_equal_with_plain_version": True,
+        "profiled_step_wall_ms": prof["wall_ms"],
+        "profiled_step_device_ms": prof["device_ms"],
+        "device_busy_share": None if prof["device_idle_share"] is None
+        else 1.0 - prof["device_idle_share"],
+        "device_kernel_launches": prof["kernel_launches"],
+        "top_device_ms": prof["top_device_ms"],
+        "sph2pob_iou_kernel_ms_in_step": prof["ms_by_kernel"].get(
+            "sph2pob_iou_pairwise"),
+        "step_parts_ms_each_synchronised": parts,
+    })
+    emit(out)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -509,8 +928,9 @@ def main(argv=None) -> int:
     p.add_argument("--reps", type=int, default=20,
                    help="timed launches per kernel and shape (median)")
     p.add_argument("--fmad-probe", action="store_true",
-                   help="also build the kernel with FMA contraction and "
-                        "report its error and time beside the shipped build")
+                   help="also build the pairwise kernel with FMA contraction "
+                        "and report its error and time beside the shipped "
+                        "build")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -522,19 +942,32 @@ def main(argv=None) -> int:
     shapes = phase_kernels(args.seed, args.reps)
     if args.fmad_probe:
         emit({"phase": "fmad_probe", **fmad_probe(args.seed, args.reps)})
-    launches, det, images = phase_serve(args.seed)
+    launches = {k.name: 0 for k in KERNELS}
+    launches["sph2pob_iou_aligned"] += phase_iou_tool()
+    served, det, images = phase_serve(args.seed)
+    launches["sph2pob_iou_pairwise"] += served
     phase_breakdown(det, images[-1], args.reps)
+    del det
+    launches["sph2pob_iou_pairwise"] += phase_train(args.seed)
+    idle = [k.name for k in KERNELS if launches[k.name] < 1]
+    if idle:
+        raise AssertionError(f"no main path launched {idle}")
 
-    main_shape = next(s for s in shapes if s["shape"] == list(SERVING_SHAPE))
+    summary = []
+    for k in KERNELS:
+        main_shape = next(r for r in shapes[k.name]
+                          if r["shape"] == list(k.main_shape))
+        summary.append({
+            "name": k.name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "launches": launches[k.name],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes[k.name]),
+            "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_ms"],
+            "bound_by": main_shape["bound_by"], "library_ms": None,
+            "shape": main_shape["shape"], "tolerance": TOLERANCE,
+            "shapes": shapes[k.name]})
     print(smi, flush=True)
-    emit({"kernels": [{
-        "name": KERNEL_NAME, "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max(s["max_abs_err"] for s in shapes),
-        "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
-        "library_ms": None, "shape": main_shape["shape"],
-        "tolerance": TOLERANCE, "shapes": shapes}]})
+    emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,11 +1,18 @@
 """sph_retina_tpu_torch — the PyTorch/CUDA port of sph_retina_tpu.
 
 Spherical object detection on an NVIDIA Hopper GPU: plain tensor code is
-PyTorch, and the fused pairwise Sph2Pob IoU that the JAX package wrote as a
-Pallas kernel for the TPU is a hand-written CUDA kernel (``csrc/``, built at
-first use). So far the package holds the RetinaNet serving path:
-``init_detector`` / ``inference_detector`` (``apis.py``) and the HTTP server
-(``python -m sph_retina_tpu_torch.serve``).
+PyTorch, and the two fused Sph2Pob IoU kernels that the JAX package wrote in
+Pallas for the TPU (pairwise and aligned) are hand-written CUDA kernels
+(``csrc/``, built at first use). So far the package holds, for the RetinaNet
+family:
+
+- the serving path: ``init_detector`` / ``inference_detector`` (``apis.py``)
+  and the HTTP server (``python -m sph_retina_tpu_torch.serve``);
+- the training path: ``python -m sph_retina_tpu_torch.train CONFIG`` (anchor
+  assignment through the pairwise kernel, focal + L1 losses, SGD with warm-up,
+  clip, frozen stages and EMA, the synthetic dataset);
+- the IoU tool: ``python -m sph_retina_tpu_torch.benchmark_iou`` (the aligned
+  kernel against its plain version).
 
 Box conventions, degrees at the boundary, as in the JAX package:
 

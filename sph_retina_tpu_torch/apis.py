@@ -25,6 +25,7 @@ from .data.pipeline import SphPipeline
 from .engine.zoo import get_family
 from .models.from_flax import load_flax_variables
 from .utils.config import apply_overrides, load_config
+from .utils.device import resolve_device
 from .utils.publish import load_published
 
 __all__ = ["Detector", "init_detector", "inference_detector"]
@@ -44,17 +45,6 @@ class Detector:
     device: torch.device
 
 
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "detector on the CPU deliberately")
-    return device
-
-
 def init_detector(config, checkpoint: str | None = None,
                   cfg_options: Sequence[str] | None = None,
                   seed: int = 0, device=None) -> Detector:
@@ -64,7 +54,7 @@ def init_detector(config, checkpoint: str | None = None,
     ``save_published`` writes it); ``None`` keeps the random initialisation
     drawn from ``seed``. ``device``: ``None`` means the CUDA device.
     """
-    device = _resolve_device(device)
+    device = resolve_device(device)
     cfg = dict(config) if isinstance(config, dict) else load_config(config)
     if cfg_options:
         cfg = apply_overrides(cfg, list(cfg_options))

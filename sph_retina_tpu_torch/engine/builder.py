@@ -1,13 +1,16 @@
 """Build runtime objects from declarative config dicts:
-config dicts of ``configs/`` -> model, detector config."""
+config dicts of ``configs/`` -> model, detector config, optimiser."""
 
 from __future__ import annotations
 
 import torch
 
 from ..boxes.anchors import SphAnchorGenerator
+from ..boxes.assigner import MaxIoUAssigner
 from ..boxes.coders import SphBBoxCoder
+from ..losses import build_loss
 from ..models.single_stage import DetectorConfig, SphRetinaNet
+from .train import SGDOptimizer, build_optimizer, step_lr_schedule
 
 
 def parse_test_nms_cfg(cfg: dict) -> dict:
@@ -23,8 +26,24 @@ def parse_test_nms_cfg(cfg: dict) -> dict:
     )
 
 
+def _loss_or_refusal(loss_cfg: dict):
+    """The regression loss of a config. A loss type that is not available
+    yet must not stop a detector from being built for inference, which needs
+    no loss: the callable returned for it raises, by name, when called."""
+    try:
+        return build_loss(loss_cfg)
+    except NotImplementedError as err:
+        message = str(err)
+
+        def refuse(*args, **kwargs):
+            raise NotImplementedError(message)
+
+        return refuse
+
+
 def build_detector_config(cfg: dict) -> DetectorConfig:
     m = cfg["model"]
+    train_cfg = cfg.get("train_cfg", {})
     test_cfg = cfg.get("test_cfg", {})
     box_version = m.get("box_version", 4)
     anchor_cfg = dict(m.get("anchor_generator", {}))
@@ -35,6 +54,9 @@ def build_detector_config(cfg: dict) -> DetectorConfig:
     anchor_cfg.setdefault("scales_per_octave", 3)
     anchor_cfg["box_version"] = box_version
     coder_cfg = m.get("bbox_coder", {})
+    loss_bbox_cfg = m.get("loss_bbox", {"type": "SphL1Loss"})
+    assigner_cfg = dict(train_cfg.get("assigner", {}))
+    assign_backend = assigner_cfg.pop("backend", "sph2pob_efficient")
 
     return DetectorConfig(
         num_classes=m["num_classes"],
@@ -46,6 +68,15 @@ def build_detector_config(cfg: dict) -> DetectorConfig:
             target_means=coder_cfg.get("target_means"),
             target_stds=coder_cfg.get("target_stds"),
         ),
+        assigner=MaxIoUAssigner(
+            pos_iou_thr=assigner_cfg.get("pos_iou_thr", 0.5),
+            neg_iou_thr=assigner_cfg.get("neg_iou_thr", 0.4),
+            min_pos_iou=assigner_cfg.get("min_pos_iou", 0.0),
+        ),
+        loss_bbox=_loss_or_refusal(loss_bbox_cfg),
+        reg_decoded_bbox=m.get("reg_decoded_bbox", False),
+        loss_pos_topk=m.get("loss_pos_topk", 1024),
+        assign_backend=assign_backend,
         nms_pre=test_cfg.get("nms_pre", 1000),
         nms_backend=test_cfg.get("iou_calculator", "planar"),
         **parse_test_nms_cfg(cfg),
@@ -63,4 +94,63 @@ def build_model(cfg: dict) -> SphRetinaNet:
         groups=bb.get("groups", 1),
         base_width=bb.get("base_width", 64),
         dtype=dtype,
+    )
+
+
+def scaled_base_lr(cfg: dict, num_processes: int = 1) -> float:
+    """Linear LR scaling rule (``auto_scale_lr``): when enabled, scale the
+    configured lr by global_batch / base_batch_size, the global batch being
+    ``num_processes * samples_per_gpu``."""
+    opt = cfg.get("optimizer", {})
+    lr = opt.get("lr", 0.005)
+    asl = cfg.get("auto_scale_lr", {})
+    if not asl.get("enable", False):
+        return lr
+    base = asl.get("base_batch_size")
+    if not base:
+        return lr
+    batch = num_processes * cfg.get("data", {}).get("samples_per_gpu", 4)
+    return lr * batch / base
+
+
+def build_tx(cfg: dict, model: torch.nn.Module, steps_per_epoch: int,
+             num_processes: int = 1) -> SGDOptimizer:
+    """The optimiser the config describes, over ``model``'s parameters
+    (the name is the JAX package's, where it makes an optax transformation)."""
+    opt = cfg.get("optimizer", {})
+    lr_cfg = cfg.get("lr_config", {})
+    schedule = step_lr_schedule(
+        scaled_base_lr(cfg, num_processes),
+        steps_per_epoch,
+        milestones=tuple(lr_cfg.get("step", (80, 110))),
+        warmup_iters=lr_cfg.get("warmup_iters", 500),
+        warmup_ratio=lr_cfg.get("warmup_ratio", 0.001),
+    )
+    clip = cfg.get("optimizer_config", {}).get("grad_clip")
+    if "frozen_prefixes" in cfg:
+        frozen = tuple(cfg["frozen_prefixes"])
+    else:
+        # From model.backbone.frozen_stages (mmdet ResNet._freeze_stages:
+        # >= 0 freezes the stem, 1..N freeze layer1..layerN; -1 freezes
+        # nothing). The shipped configs use frozen_stages=1.
+        fs = cfg.get("model", {}).get("backbone", {}).get("frozen_stages", 1)
+        frozen = ()
+        if fs >= 0:
+            frozen += ("backbone/conv1", "backbone/bn1")
+        frozen += tuple(f"backbone/layer{i}" for i in range(1, fs + 1))
+    # EMAHook: configs enable weight averaging via
+    # custom_hooks=[dict(type='EMAHook', momentum=...)]; a bare
+    # ``ema_momentum`` key is also accepted.
+    ema = cfg.get("ema_momentum")
+    for hook in cfg.get("custom_hooks", []) or []:
+        if isinstance(hook, dict) and "EMA" in str(hook.get("type", "")):
+            ema = hook.get("momentum", 0.0002)
+    return build_optimizer(
+        model,
+        schedule,
+        momentum=opt.get("momentum", 0.9),
+        weight_decay=opt.get("weight_decay", 5e-4),
+        grad_clip=clip.get("max_norm") if isinstance(clip, dict) else clip,
+        frozen_prefixes=frozen,
+        ema_momentum=ema,
     )

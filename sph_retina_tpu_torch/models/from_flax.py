@@ -13,7 +13,9 @@ modules of the JAX package — and returns a flat ``state_dict`` for
   (``backbone.layer1_0.conv1``); the port's modules carry the same names.
 
 ``load_flax_variables`` then loads it strictly: a missing key, an extra key
-or a shape that differs raises.
+or a shape that differs raises. ``to_flax`` is the inverse of ``from_flax``
+(the round trip is exact), so that parameters, gradients and optimiser state
+of the two packages can be compared leaf by leaf in one layout.
 """
 
 from __future__ import annotations
@@ -61,6 +63,38 @@ def from_flax(params: dict, batch_stats: dict | None = None) -> dict:
             raise KeyError(f"unknown batch_stats leaf {'/'.join(path)}")
         put(f"{module}.{_BN_STATS[name]}", leaf)
     return out
+
+
+def to_flax(state_dict: dict) -> tuple[dict, dict]:
+    """Flat ``state_dict`` (or any dict of tensors under its keys, such as
+    gradients by parameter name) -> nested ``(params, batch_stats)`` trees of
+    numpy arrays in the Flax layout. 4-d ``weight`` is a conv kernel, 1-d
+    ``weight`` a batch-norm scale."""
+    params: dict = {}
+    batch_stats: dict = {}
+    stats_names = {v: k for k, v in _BN_STATS.items()}
+
+    def put(tree, path, value):
+        for part in path[:-1]:
+            tree = tree.setdefault(part, {})
+        tree[path[-1]] = value
+
+    for key, tensor in state_dict.items():
+        *module, name = key.split(".")
+        value = tensor.detach().cpu().numpy()
+        if name in stats_names:
+            put(batch_stats, module + [stats_names[name]], value)
+        elif name == "weight" and value.ndim == 4:
+            put(params, module + ["kernel"],
+                np.ascontiguousarray(value.transpose(2, 3, 1, 0)))
+        elif name == "weight" and value.ndim == 1:
+            put(params, module + ["scale"], value)
+        elif name == "bias":
+            put(params, module + ["bias"], value)
+        else:
+            raise KeyError(f"unknown state_dict entry {key!r} of shape "
+                           f"{tuple(value.shape)}")
+    return params, batch_stats
 
 
 def load_flax_variables(model: torch.nn.Module, params: dict,

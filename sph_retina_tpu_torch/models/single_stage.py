@@ -1,26 +1,38 @@
-"""Single-stage spherical detector: module + functional inference path.
+"""Single-stage spherical detector: module + functional train/test paths.
 
 - the network (backbone -> FPN -> head) is one ``nn.Module``; images come in
   as (B, H, W, 3), as the JAX package takes them, and are viewed as
   channels-last NCHW inside;
+- target assignment and loss are pure functions over the padded batch (gt
+  boxes padded to ``max_gt`` with a mask). The anchors x gt IoU matrix of the
+  whole batch is ONE launch of the pairwise kernel at ``(B * max_gt, N)``;
+  every count (positives, dropped positives) stays a 0-dim tensor on the
+  device, and nothing is indexed by a mask whose size the host would have to
+  learn, so a training step never waits for the device;
 - decode + NMS is a pure function over the head outputs, one image at a
   time (the (k, k) IoU matrix of each image is one kernel launch).
 
-The training half (anchor targets, losses) is not part of this package yet.
+Loss semantics follow mmdet ``AnchorHead.loss``: focal classification over
+pos+neg anchors with avg_factor = total positives, regression over positives
+(optionally on decoded boxes).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 from torch import nn
 
 from ..boxes.anchors import SphAnchorGenerator
+from ..boxes.assigner import MaxIoUAssigner
 from ..boxes.coders import SphBBoxCoder
 from ..boxes.nms import NMSResult, sph_batched_nms
+from ..iou.api import AVAILABLE_BACKENDS, canonical_backend
+from ..losses import sigmoid_focal_loss, sph_l1_loss
+from ..ops.sph2pob_iou import sph2pob_iou_pairwise
 from .fpn import FPN
 from .heads.retina_head import SphRetinaHead
 from .resnet import ResNet
@@ -72,14 +84,17 @@ class SphRetinaNet(nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
-    """Bundles the declarative pieces the configs spread over several dicts
-    (the inference half; training fields are not part of this package yet)."""
+    """Bundles the declarative pieces the configs spread over several dicts."""
 
     num_classes: int
     box_version: int = 4
     img_size: tuple = (512, 1024)  # (H, W)
     anchor_generator: SphAnchorGenerator = None
     bbox_coder: SphBBoxCoder = None
+    assigner: MaxIoUAssigner = None
+    loss_bbox: Callable = None
+    reg_decoded_bbox: bool = False
+    assign_backend: str = "sph2pob_efficient"
     # test cfg
     nms_pre: int = 1000
     score_thr: float = 0.05
@@ -87,6 +102,16 @@ class DetectorConfig:
     max_per_img: int = 100
     nms_backend: str = "planar"
     nms_type: str = "nms"
+    # focal loss
+    focal_gamma: float = 2.0
+    focal_alpha: float = 0.25
+    # Decoded-box regression losses (reg_decoded_bbox) run per anchor, but
+    # only positives carry weight (~10^2 of ~10^5 per image). Gathering the
+    # top-K anchors by bbox weight before the loss keeps the loss math off
+    # the zero-weight anchors — exact whenever positives <= K, since dropped
+    # terms have weight 0 and the avg_factor is unchanged. K is per-image.
+    # Set 0 to disable (full per-anchor loss).
+    loss_pos_topk: int = 1024
 
     def featmap_sizes(self):
         # ceil: stride-2 convs output ceil(in/2), so tiny inputs still give
@@ -98,6 +123,148 @@ class DetectorConfig:
         return self.anchor_generator.flat_anchors(self.featmap_sizes(), device)
 
 
+def retina_config(num_classes: int, box_version: int = 4, img_size=(512, 1024),
+                  loss_bbox: Callable | None = None,
+                  reg_decoded_bbox: bool = False, **overrides) -> DetectorConfig:
+    """The defaults of the base config ``sph_retinanet_r50_fpn``."""
+    return DetectorConfig(
+        num_classes=num_classes,
+        box_version=box_version,
+        img_size=img_size,
+        anchor_generator=SphAnchorGenerator(
+            strides=[8, 16, 32, 64, 128],
+            ratios=[0.5, 1.0, 2.0],
+            octave_base_scale=4,
+            scales_per_octave=3,
+            box_version=box_version,
+        ),
+        bbox_coder=SphBBoxCoder(box_version=box_version),
+        assigner=MaxIoUAssigner(pos_iou_thr=0.5, neg_iou_thr=0.4,
+                                min_pos_iou=0.0),
+        loss_bbox=loss_bbox if loss_bbox is not None else sph_l1_loss,
+        reg_decoded_bbox=reg_decoded_bbox,
+        **overrides,
+    )
+
+
+# --------------------------------------------------------------------------- #
+# functional training path
+# --------------------------------------------------------------------------- #
+class AnchorTargets(NamedTuple):
+    labels: torch.Tensor          # (B, N) int32 in [0, num_classes]; C = bg
+    label_weights: torch.Tensor   # (B, N)
+    bbox_targets: torch.Tensor    # (B, N, D)
+    bbox_weights: torch.Tensor    # (B, N)
+    num_pos: torch.Tensor         # () total positives in batch
+
+
+def _batch_pairwise_iou(gt: torch.Tensor, anchors: torch.Tensor, backend: str):
+    """(B, G, D) x (N, D) -> (B, G, N), one fused kernel call."""
+    name = canonical_backend(backend)
+    if name not in AVAILABLE_BACKENDS:
+        raise NotImplementedError(
+            f"assigner backend {backend!r} is not available in this package "
+            f"yet; only {list(AVAILABLE_BACKENDS)} and its aliases are")
+    b, g, d = gt.shape
+    flat = gt.reshape(b * g, d).contiguous()
+    iou = sph2pob_iou_pairwise(flat, anchors.contiguous())
+    return iou.reshape(b, g, anchors.shape[0])
+
+
+@torch.no_grad()
+def anchor_targets(
+    cfg: DetectorConfig,
+    anchors: torch.Tensor,        # (N, D)
+    gt_boxes: torch.Tensor,       # (B, G, D) degrees, padded
+    gt_labels: torch.Tensor,      # (B, G) integer
+    gt_mask: torch.Tensor,        # (B, G) bool
+) -> AnchorTargets:
+    """Assignment and regression targets of the whole batch at once; no
+    gradient flows into them."""
+    overlaps = _batch_pairwise_iou(gt_boxes, anchors, cfg.assign_backend)
+    res = cfg.assigner(overlaps, gt_mask, gt_labels)
+    pos = res.gt_inds > 0
+    neg = res.gt_inds == 0
+    g, d = gt_boxes.shape[1:]
+    safe = (res.gt_inds - 1).clamp(0, g - 1).to(torch.int64)     # (B, N)
+    matched = gt_boxes.gather(1, safe[..., None].expand(-1, -1, d))
+    if cfg.reg_decoded_bbox:
+        targets = matched
+    else:
+        targets = cfg.bbox_coder.encode(anchors[None], matched)
+    labels = torch.where(pos, res.labels, cfg.num_classes).to(torch.int32)
+    return AnchorTargets(
+        labels,
+        (pos | neg).to(torch.float32),
+        torch.where(pos[..., None], targets, 0.0),
+        pos.to(torch.float32),
+        pos.sum(),
+    )
+
+
+def retina_loss(
+    cfg: DetectorConfig,
+    cls_scores: Sequence[torch.Tensor],   # per level (B, n_l, C)
+    bbox_preds: Sequence[torch.Tensor],   # per level (B, n_l, D)
+    anchors: torch.Tensor,                # (N, D) flat over levels
+    gt_boxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_mask: torch.Tensor,
+) -> dict:
+    """Losses of one batch as 0-dim tensors: ``loss_cls``, ``loss_bbox`` and,
+    where the positive gather is on, the gradient-free count
+    ``metric_pos_dropped``."""
+    cls = torch.cat(list(cls_scores), dim=1).float()   # (B, N, C)
+    reg = torch.cat(list(bbox_preds), dim=1).float()   # (B, N, D)
+    t = anchor_targets(cfg, anchors, gt_boxes, gt_labels, gt_mask)
+    num_total = t.num_pos.clamp(min=1).to(torch.float32)
+
+    loss_cls = sigmoid_focal_loss(
+        cls.reshape(-1, cfg.num_classes),
+        t.labels.reshape(-1),
+        t.label_weights.reshape(-1),
+        gamma=cfg.focal_gamma,
+        alpha=cfg.focal_alpha,
+        avg_factor=num_total,
+    )
+
+    b, n, d = reg.shape
+    if cfg.reg_decoded_bbox:
+        preds = cfg.bbox_coder.decode(anchors[None], reg).reshape(-1, d)
+        targets = t.bbox_targets.reshape(-1, d)
+        weights = t.bbox_weights.reshape(-1)
+        k = min(b * cfg.loss_pos_topk, b * n) if cfg.loss_pos_topk else 0
+        pos_dropped = None
+        if 0 < k < b * n:
+            # Positive-gather: the loss only sees the K highest-weight
+            # anchors — exact only while positives <= K. A breach truncates
+            # the regression loss, so it is surfaced as metric_pos_dropped
+            # in the logged metrics (0 in any healthy run; excluded from the
+            # optimised total). Which of several equal weights torch.topk
+            # picks does not matter: the loss is a sum over the picked rows.
+            pos_dropped = ((weights > 0).sum() - k).clamp(min=0).to(
+                torch.float32)
+            weights, idx = torch.topk(weights, k)
+            preds = preds[idx]
+            targets = targets[idx]
+        loss_bbox = cfg.loss_bbox(preds, targets, weights,
+                                  avg_factor=num_total)
+        if pos_dropped is not None:
+            return {"loss_cls": loss_cls, "loss_bbox": loss_bbox,
+                    "metric_pos_dropped": pos_dropped}
+    else:
+        loss_bbox = cfg.loss_bbox(
+            reg.reshape(-1, d),
+            t.bbox_targets.reshape(-1, d),
+            t.bbox_weights.reshape(-1)[:, None].expand(-1, d),
+            avg_factor=num_total,
+        )
+    return {"loss_cls": loss_cls, "loss_bbox": loss_bbox}
+
+
+# --------------------------------------------------------------------------- #
+# functional inference path
+# --------------------------------------------------------------------------- #
 def _select_level(cfg, scores, deltas, priors, k):
     """Per-level score filtering + exact top-k over the (anchor, class)
     pairs. Returns (scores, labels, deltas, priors, valid) of k rows; rows

@@ -12,11 +12,13 @@ boxes:
   through a Cephes-style polynomial atan
   (``arccos(x) = 2 atan(sqrt((1-x)/(1+x)))``, ~1e-7 absolute error).
 
-This module is the plain PyTorch version of the CUDA kernel in
-``csrc/sph2pob_iou.cu``, whose per-pair body (``csrc/sph2pob_pair.cuh``)
+This module is the plain PyTorch version of the CUDA kernels in
+``csrc/sph2pob_iou.cu`` (pairwise) and ``csrc/sph2pob_iou_aligned.cu``
+(matched pairs), whose shared per-pair body (``csrc/sph2pob_pair.cuh``)
 repeats this arithmetic operation for operation. It is what the CPU tests
 hold against the JAX package and what the kernel is held against on the
-card; nothing on the serving path calls it when a card is present.
+card, where nothing else calls it but the IoU tool, for its ``fused_plain``
+row.
 
 Shape-polymorphic: ``(N,)`` vectors for matched pairs, or broadcast
 ``(N, 1)`` x ``(1, M)`` for the pairwise case. fp32 throughout.
@@ -234,3 +236,19 @@ def sph2pob_iou_pairwise_plain(boxes1: torch.Tensor,
     b1 = [boxes1[:, c].float()[:, None] for c in range(d)]
     b2 = [boxes2[:, c].float()[None, :] for c in range(d)]
     return fused_sph2pob_iou(b1, b2)
+
+
+def sph2pob_iou_aligned_plain(boxes1: torch.Tensor,
+                              boxes2: torch.Tensor) -> torch.Tensor:
+    """Aligned Sph2Pob IoU: (N, D), (N, D) degrees -> (N,) in [0, 1].
+
+    :func:`fused_sph2pob_iou` on component vectors of shape ``(N,)``.
+    """
+    if boxes1.ndim != 2 or boxes1.shape != boxes2.shape \
+            or boxes1.shape[1] not in (4, 5):
+        raise ValueError(
+            f"expected two (N, D) box sets of one shape with D in (4, 5), "
+            f"got {tuple(boxes1.shape)} and {tuple(boxes2.shape)}")
+    d = boxes1.shape[1]
+    return fused_sph2pob_iou([boxes1[:, c].float() for c in range(d)],
+                             [boxes2[:, c].float() for c in range(d)])

@@ -1,10 +1,13 @@
-"""Pairwise fused Sph2Pob IoU: wrapper of the CUDA kernel.
+"""Fused Sph2Pob IoU: wrappers of the two CUDA kernels.
 
 ``sph2pob_iou_pairwise(boxes1, boxes2)`` computes the (N, M) IoU matrix of
-two sets of spherical boxes in degrees. On CUDA tensors it launches the
-hand-written kernel of ``csrc/sph2pob_iou.cu`` (built at first use by
-``_build.py``) or raises; on CPU tensors — and only because they lie on the
-CPU — it takes the plain version, ``fused_iou.sph2pob_iou_pairwise_plain``.
+two sets of spherical boxes in degrees, ``sph2pob_iou_aligned(boxes1,
+boxes2)`` the (N,) IoUs of N matched pairs. On CUDA tensors each launches its
+hand-written kernel — ``csrc/sph2pob_iou.cu`` and
+``csrc/sph2pob_iou_aligned.cu``, two libraries built at first use by
+``_build.py``, each source on its own so that they compile side by side — or
+raises; on CPU tensors, and only because they lie on the CPU, each takes its
+plain version in ``fused_iou.py``.
 """
 
 from __future__ import annotations
@@ -14,14 +17,14 @@ import ctypes
 import torch
 
 from . import _build
-from .fused_iou import sph2pob_iou_pairwise_plain
+from .fused_iou import sph2pob_iou_aligned_plain, sph2pob_iou_pairwise_plain
 
-_LIB_NAME = "sph2pob_iou"
+_PAIRWISE_LIB = "sph2pob_iou"
+_ALIGNED_LIB = "sph2pob_iou_aligned"
 
 
-def _launcher():
-    lib = _build.load_library(_LIB_NAME)
-    fn = lib.sph2pob_iou_pairwise_launch
+def _pairwise_launcher():
+    fn = _build.load_library(_PAIRWISE_LIB).sph2pob_iou_pairwise_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_void_p]
@@ -29,15 +32,17 @@ def _launcher():
     return fn
 
 
-def sph2pob_iou_pairwise(boxes1: torch.Tensor,
-                         boxes2: torch.Tensor) -> torch.Tensor:
-    """Fused pairwise Sph2Pob IoU matrix: (N, D) x (M, D) degrees -> (N, M).
+def _aligned_launcher():
+    fn = _build.load_library(_ALIGNED_LIB).sph2pob_iou_aligned_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
-    Both inputs must be fp32, contiguous, on one device, with D equal and 4
-    (theta, phi, alpha, beta) or 5 (+ gamma). The kernel runs on the current
-    CUDA stream and the call does not synchronise. Every kernel launch adds
-    one to ``sph2pob_iou_pairwise.launches``.
-    """
+
+def _check_boxes(boxes1, boxes2) -> None:
+    """What both kernels take: fp32, contiguous, (N, 4 | 5), one width, one
+    device, CPU or CUDA."""
     for name, b in (("boxes1", boxes1), ("boxes2", boxes2)):
         if not isinstance(b, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(b)}")
@@ -54,18 +59,29 @@ def sph2pob_iou_pairwise(boxes1: torch.Tensor,
     if boxes1.device != boxes2.device:
         raise ValueError(
             f"boxes lie on different devices: {boxes1.device}, {boxes2.device}")
+    if boxes1.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {boxes1.device}")
 
+
+def sph2pob_iou_pairwise(boxes1: torch.Tensor,
+                         boxes2: torch.Tensor) -> torch.Tensor:
+    """Fused pairwise Sph2Pob IoU matrix: (N, D) x (M, D) degrees -> (N, M).
+
+    Both inputs must be fp32, contiguous, on one device, with D equal and 4
+    (theta, phi, alpha, beta) or 5 (+ gamma). The kernel runs on the current
+    CUDA stream and the call does not synchronise. Every kernel launch adds
+    one to ``sph2pob_iou_pairwise.launches``.
+    """
+    _check_boxes(boxes1, boxes2)
     if boxes1.device.type == "cpu":
         return sph2pob_iou_pairwise_plain(boxes1, boxes2)
-    if boxes1.device.type != "cuda":
-        raise ValueError(f"unsupported device {boxes1.device}")
 
     n, d = boxes1.shape
     m = boxes2.shape[0]
     out = torch.empty((n, m), dtype=torch.float32, device=boxes1.device)
     if n == 0 or m == 0:
         return out
-    launch = _launcher()
+    launch = _pairwise_launcher()
     with torch.cuda.device(boxes1.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(boxes1.data_ptr(), boxes2.data_ptr(), out.data_ptr(),
@@ -79,3 +95,42 @@ def sph2pob_iou_pairwise(boxes1: torch.Tensor,
 
 
 sph2pob_iou_pairwise.launches = 0
+
+
+def sph2pob_iou_aligned(boxes1: torch.Tensor,
+                        boxes2: torch.Tensor) -> torch.Tensor:
+    """Fused aligned Sph2Pob IoU: (N, D), (N, D) degrees -> (N,) in [0, 1].
+
+    ``out[i]`` is the IoU of ``boxes1[i]`` and ``boxes2[i]``. Both inputs
+    must be fp32, contiguous, on one device, of one shape, with D 4 or 5. No
+    gradient flows through the call (the kernel it replaces has none). The
+    kernel runs on the current CUDA stream and the call does not synchronise.
+    Every kernel launch adds one to ``sph2pob_iou_aligned.launches``.
+    """
+    _check_boxes(boxes1, boxes2)
+    if boxes1.shape[0] != boxes2.shape[0]:
+        raise ValueError(
+            f"aligned IoU needs as many boxes on both sides, got "
+            f"{boxes1.shape[0]} and {boxes2.shape[0]}")
+    if boxes1.device.type == "cpu":
+        with torch.no_grad():
+            return sph2pob_iou_aligned_plain(boxes1, boxes2)
+
+    n, d = boxes1.shape
+    out = torch.empty((n,), dtype=torch.float32, device=boxes1.device)
+    if n == 0:
+        return out
+    launch = _aligned_launcher()
+    with torch.cuda.device(boxes1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(boxes1.data_ptr(), boxes2.data_ptr(), out.data_ptr(),
+                     n, d, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"sph2pob_iou_aligned: kernel launch failed with CUDA error "
+            f"{err} for shape {tuple(boxes1.shape)}")
+    sph2pob_iou_aligned.launches += 1
+    return out
+
+
+sph2pob_iou_aligned.launches = 0
