@@ -18,18 +18,22 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             side by side
 3. kernels  each kernel vs its plain version at the shapes its paths give it
             (max abs difference <= 1e-4, values finite and in [0, 1]), timed
-            with CUDA events (median after warm-up), beside its bound
+            with CUDA events (median after warm-up), beside its bound; the
+            share of pairs the kernel culls (``sph2pob_disjoint_plain``),
+            whose plain IoU must be 0.0
 4. iou_tool the IoU tool runs the aligned kernel (launch counter set to 0
             before, read after)
 5. serve    the server answers the requests through the pairwise kernel, the
             records are well formed, and swapping the plain version in keeps
-            the same boxes;
+            the same boxes; the kernel is checked and timed as in phase 3 on
+            the NMS candidates of the last request;
    breakdown  where a steady request's time goes (events, host clock, profiler)
 6. train    ``train.main`` takes 6 steps at full width: finite losses, one
             launch of the pairwise kernel a step at (256, 98208); then, on a
             fixed batch with warm-up off, the loss falls over 6 steps, the
             plain version in the kernel's place gives the same labels, and a
-            step's time, memory and device share are read
+            step's time, memory and device share are read; the kernel is
+            checked and timed as in phase 3 on the batch's assignment input
 7. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
@@ -41,6 +45,7 @@ CUDA device.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -70,8 +75,9 @@ from sph_retina_tpu_torch.boxes import nms as nms_module
 from sph_retina_tpu_torch.data import to_device
 from sph_retina_tpu_torch.data.pipeline import maybe_normalize_images
 from sph_retina_tpu_torch.models import single_stage
-from sph_retina_tpu_torch.ops import _build
+from sph_retina_tpu_torch.ops import _build, fused_iou
 from sph_retina_tpu_torch.ops.fused_iou import (
+    sph2pob_disjoint_plain,
     sph2pob_iou_aligned_plain,
     sph2pob_iou_pairwise_plain,
 )
@@ -165,12 +171,14 @@ class Kernel:
     device_name: str     # substring of the kernel's name in a profile
     wrapper: Callable
     plain: Callable
+    culled: Callable     # (boxes1, boxes2) -> the pairs the kernel culls
     shapes: tuple        # pairwise (N, M, D); aligned (N, D)
     main_shape: tuple    # the one the summary line's times are for
     inputs: Callable     # (shape, seed) -> two numpy box sets
     out_shape: Callable  # shape -> the output's shape
     n_bytes: Callable    # shape -> bytes moved: inputs read once, output written
     identical: Callable  # (output, shape) -> IoUs of the identical pairs
+    pairwise: bool
 
     @property
     def source(self) -> str:
@@ -186,6 +194,7 @@ KERNELS = (
         replaces="sph_retina_tpu/ops/pallas_iou.py:134",
         device_name="pairwise_kernel",
         wrapper=sph2pob_iou_pairwise, plain=sph2pob_iou_pairwise_plain,
+        culled=lambda b1, b2: sph2pob_disjoint_plain(b1[:, None], b2[None]),
         # serving, ragged edges, half the assignment rows at D=4, assignment
         shapes=(SERVING_SHAPE, (1000, 1000, 4), (7, 5, 5), (129, 257, 4),
                 (128, 98208, 4), ASSIGN_SHAPE),
@@ -194,12 +203,14 @@ KERNELS = (
         out_shape=lambda s: (s[0], s[1]),
         n_bytes=lambda s: 4 * ((s[0] + s[1]) * s[2] + s[0] * s[1]),
         identical=lambda out, s: out.diagonal()[:max(1, min(s[0], s[1]) // 8)],
+        pairwise=True,
     ),
     Kernel(
         name="sph2pob_iou_aligned", library="sph2pob_iou_aligned",
         replaces="sph_retina_tpu/ops/pallas_iou.py:81",
         device_name="aligned_kernel",
         wrapper=sph2pob_iou_aligned, plain=sph2pob_iou_aligned_plain,
+        culled=sph2pob_disjoint_plain,
         shapes=tuple((n, d) for d in (4, 5)
                      for n in (1, 130, 98208, 1_000_000)),
         main_shape=TOOL_SHAPE,
@@ -207,6 +218,7 @@ KERNELS = (
         out_shape=lambda s: (s[0],),
         n_bytes=lambda s: 4 * (2 * s[0] * s[1] + s[0]),
         identical=lambda out, s: out[:max(1, s[0] // 8)],
+        pairwise=False,
     ),
 )
 
@@ -290,7 +302,8 @@ def back_to_back_ms(fn, reps: int) -> float:
 def profiled(fn, top: int = 10) -> dict:
     """One profiled call of ``fn``: wall time, device time by kernel name
     (device-side events only: operator rows repeat their kernels' time), the
-    device's idle share of the wall time, each hand-written kernel's time."""
+    device's idle share of the wall time, each hand-written kernel's time
+    and launches."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -303,11 +316,12 @@ def profiled(fn, top: int = 10) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     device_us = sum(r[1] for r in rows)
-    by_kernel = {}
+    by_kernel, launches_by_kernel = {}, {}
     for k in KERNELS:
-        own = [us for key, us, _ in rows if k.device_name in key]
+        own = [(us, n) for key, us, n in rows if k.device_name in key]
         if own:
-            by_kernel[k.name] = sum(own) / 1e3
+            by_kernel[k.name] = sum(us for us, _ in own) / 1e3
+            launches_by_kernel[k.name] = sum(n for _, n in own)
     return {
         "wall_ms": wall_us / 1e3,
         "device_ms": device_us / 1e3 if rows else None,
@@ -317,47 +331,85 @@ def profiled(fn, top: int = 10) -> dict:
             {"name": k[:60], "ms": us / 1e3, "calls": n}
             for k, us, n in sorted(rows, key=lambda r: -r[1])[:top]],
         "ms_by_kernel": by_kernel,
+        "launches_by_kernel": launches_by_kernel,
     }
 
 
-class _PairOpCounter(TorchDispatchMode):
-    """Counts the tensor operations whose result has one element a pair."""
+class _OpCounter(TorchDispatchMode):
+    """Counts tensor operations (views and ``zeros_like`` left out) by the
+    number of elements of their result."""
 
-    def __init__(self, numel: int):
+    def __init__(self):
         super().__init__()
-        self.numel = numel
-        self.count = 0
+        self.by_numel = collections.Counter()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if isinstance(out, torch.Tensor) and out.numel() == self.numel \
+        if isinstance(out, torch.Tensor) and not func.is_view \
                 and "zeros_like" not in str(func):
-            self.count += 1
+            self.by_numel[out.numel()] += 1
         return out
 
 
-def ops_per_pair(kernel: Kernel, d: int) -> int:
+def stage_ops(kernel: Kernel, d: int) -> dict:
     """Elementwise fp32 operations (arithmetic, compare, select, sin/cos,
-    sqrt, each counted once) that the kernel's plain version spends on one
-    pair: the tensor operations whose result has one element a pair, counted
-    on 42 pairs. For the pairwise kernel operations on one side's boxes
-    alone are thus left out; for the aligned one every operation is a
-    pair's."""
+    sqrt, each counted once) of each stage of the kernels' body, counted on
+    the plain version's stages (``ops/fused_iou.py``): the pair's jitter
+    flag, one box's state on each side with its cull radius (``side1``,
+    ``side2``), the cull and the body. For the pairwise kernel the states
+    are counted on 6 and 7 boxes alone, as the kernel makes them (two a box,
+    one for each jitter state); for the aligned one on 42 pairs, as it makes
+    them (one a box, the state its pair's flag selects)."""
     rng = np.random.default_rng(0)
-    shape = (6, 7, d) if len(kernel.main_shape) == 3 else (42, d)
-    b1 = torch.from_numpy(seeded_boxes(shape[0], d, rng))
-    b2 = torch.from_numpy(seeded_boxes(shape[-2], d, rng))
-    with _PairOpCounter(42) as counter:
-        kernel.plain(b1, b2)
-    return counter.count
+    if kernel.pairwise:
+        n1, n2, pairs = 6, 7, 42
+        b1 = torch.from_numpy(seeded_boxes(n1, d, rng))[:, None]
+        b2 = torch.from_numpy(seeded_boxes(n2, d, rng))[None]
+    else:
+        n1 = n2 = pairs = 42
+        b1 = torch.from_numpy(seeded_boxes(pairs, d, rng))
+        b2 = torch.from_numpy(seeded_boxes(pairs, d, rng))
+    b1 = [b1[..., c] for c in range(d)]
+    b2 = [b2[..., c] for c in range(d)]
+    counts = {}
+
+    def count(name, numel, fn):
+        with _OpCounter() as counter:
+            out = fn()
+        counts[name] = counts.get(name, 0) + counter.by_numel[numel]
+        return out
+
+    flag = count("flag", pairs, lambda: fused_iou.jitter_flag(b1, b2))
+    if kernel.pairwise:
+        flag = torch.tensor(False)  # a state of each box alone
+    s1 = count("side1", n1, lambda: fused_iou.side_state(b1, 1, flag))
+    s2 = count("side2", n2, lambda: fused_iou.side_state(b2, 2, flag))
+    r1 = count("side1", n1, lambda: fused_iou.cull_radius(s1))
+    r2 = count("side2", n2, lambda: fused_iou.cull_radius(s2))
+    count("cull", pairs, lambda: fused_iou.disjoint(s1, r1, s2, r2))
+    count("body", pairs, lambda: fused_iou.pair_body(s1, s2))
+    return counts
 
 
-def bound_ms(kernel: Kernel, shape) -> tuple[float, str, dict]:
-    """The least time the card could take: the larger of bytes moved (each
-    input read once, the output written once) over the memory rate and
-    operations over the fp32 rate."""
+def bound_ms(kernel: Kernel, shape, n_culled: int) -> tuple[float, str, dict]:
+    """The least time the card could take for the work these inputs need:
+    the larger of bytes moved (each input read once, the output written
+    once) over the memory rate, and operations over the fp32 rate. The
+    operations: each box's states (the pairwise kernel: both jitter states
+    of every box; the aligned one: one state of each box a pair), the flag
+    and the cull of every pair, and the body of the pairs that the cull
+    leaves (a culled pair's IoU is 0.0 without it)."""
+    d = shape[-1]
+    pairs = math.prod(kernel.out_shape(shape))
+    ops = stage_ops(kernel, d)
+    if kernel.pairwise:
+        per_box = 2 * (shape[0] * ops["side1"] + shape[1] * ops["side2"])
+        per_pair = ops["flag"] + ops["cull"]
+    else:
+        per_box = 0
+        per_pair = ops["flag"] + ops["side1"] + ops["side2"] + ops["cull"]
+    n_ops = per_box + per_pair * pairs + ops["body"] * (pairs - n_culled)
     n_bytes = kernel.n_bytes(shape)
-    n_ops = ops_per_pair(kernel, shape[-1]) * math.prod(kernel.out_shape(shape))
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     by_ops = n_ops / PEAK_FP32_OPS_PER_S * 1e3
     detail = {"bytes": n_bytes, "operations": n_ops,
@@ -366,10 +418,14 @@ def bound_ms(kernel: Kernel, shape) -> tuple[float, str, dict]:
         ("operations" if by_ops >= by_bytes else "bytes"), detail
 
 
-def check_kernel_shape(kernel: Kernel, shape, seed: int, reps: int) -> dict:
-    b1_np, b2_np = kernel.inputs(shape, seed)
-    b1 = torch.from_numpy(b1_np).cuda()
-    b2 = torch.from_numpy(b2_np).cuda()
+def check_kernel(kernel: Kernel, b1: torch.Tensor, b2: torch.Tensor,
+                 reps: int, identical: bool = True) -> dict:
+    """The kernel against its plain version on two box sets on the card:
+    output shape and range, equality (max abs difference), the identical
+    pairs' IoU where the inputs were seeded with them, the culled share,
+    and times beside the bound."""
+    shape = (b1.shape[0], b2.shape[0], b1.shape[1]) if kernel.pairwise \
+        else tuple(b1.shape)
     got = kernel.wrapper(b1, b2)
     torch.cuda.synchronize()
     want = kernel.plain(b1, b2)
@@ -383,30 +439,45 @@ def check_kernel_shape(kernel: Kernel, shape, seed: int, reps: int) -> dict:
     lo, hi = float(got.min()), float(got.max())
     if lo < 0.0 or hi > 1.0:
         raise AssertionError(f"{at}: IoU outside [0, 1]: {lo}, {hi}")
-    ident = float(kernel.identical(got, shape).min())
-    if ident <= 0.9:  # boxes down to 1 degree wide, jittered by 0.007
-        raise AssertionError(f"{at}: identical boxes give IoU {ident}")
+    ident = None
+    if identical:
+        ident = float(kernel.identical(got, shape).min())
+        if ident <= 0.9:  # boxes down to 1 degree wide, jittered by 0.007
+            raise AssertionError(f"{at}: identical boxes give IoU {ident}")
     err = float((got - want).abs().max())
     if not err <= TOLERANCE:
         raise AssertionError(
             f"{at}: kernel differs from its plain version by {err}")
-    del want
+    culled = kernel.culled(b1, b2)
+    if not bool((want[culled] == 0.0).all()):
+        raise AssertionError(f"{at}: the cull takes pairs whose IoU is not 0")
+    n_culled = int(culled.sum())
+    del want, culled
     pairs = math.prod(kernel.out_shape(shape))
     ms = median_ms(lambda: kernel.wrapper(b1, b2), reps)
     queued = back_to_back_ms(lambda: kernel.wrapper(b1, b2), reps)
-    # the kernel's own time on the device, free of launch and event latency
-    on_device = profiled(lambda: kernel.wrapper(b1, b2))["ms_by_kernel"].get(
-        kernel.name)
+    # the kernel's own time on the device, free of launch and event latency,
+    # from a profile of five launches
+    prof = profiled(lambda: [kernel.wrapper(b1, b2) for _ in range(5)])
+    n_prof = prof["launches_by_kernel"].get(kernel.name, 0)
+    on_device = prof["ms_by_kernel"][kernel.name] / n_prof if n_prof else None
     plain = median_ms(lambda: kernel.plain(b1, b2),
                       max(5, reps // 4) if pairs > 4_000_000 else reps,
                       warmup=1)
-    bound, by, detail = bound_ms(kernel, shape)
+    bound, by, detail = bound_ms(kernel, shape, n_culled)
     return {"shape": list(shape), "max_abs_err": err,
             "bitwise_equal": err == 0.0, "min_identical_iou": ident,
+            "culled_share": n_culled / pairs,
             "kernel_ms": ms, "kernel_ms_back_to_back": queued,
             "kernel_device_ms": on_device,
             "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, **detail}
+
+
+def check_kernel_shape(kernel: Kernel, shape, seed: int, reps: int) -> dict:
+    """``check_kernel`` on seeded inputs of one of the kernel's shapes."""
+    b1, b2 = (torch.from_numpy(b).cuda() for b in kernel.inputs(shape, seed))
+    return check_kernel(kernel, b1, b2, reps)
 
 
 def fmad_probe(seed: int, reps: int) -> dict:
@@ -487,8 +558,8 @@ def phase_kernels(seed: int, reps: int) -> dict:
                         for i, shape in enumerate(k.shapes)]
                for k in KERNELS}
     emit({"phase": "kernels", "tolerance": TOLERANCE,
-          "ops_per_pair": {k.name: {str(d): ops_per_pair(k, d)
-                                    for d in (4, 5)} for k in KERNELS},
+          "stage_ops": {k.name: {str(d): stage_ops(k, d) for d in (4, 5)}
+                        for k in KERNELS},
           "shapes": results})
     return results
 
@@ -552,9 +623,10 @@ def assert_full_width(det) -> None:
         raise AssertionError("the detector does not run in bf16 on the card")
 
 
-def phase_serve(seed: int):
+def phase_serve(seed: int, reps: int):
     """Returns (the kernel's launches over the served requests, the
-    detector, the images)."""
+    detector, the images, the kernel's check on the NMS input of the last
+    request)."""
     torch.backends.cudnn.deterministic = True
     t0 = time.perf_counter()
     det = init_detector(CONFIG, seed=seed)
@@ -611,12 +683,23 @@ def phase_serve(seed: int):
             "serving path did not go through the kernel")
     for records in answers:
         check_records(records, det)
-
     # the same images with the plain version in the kernel's place
     # (one image a call, as the server ran them: a batch of another size
-    # takes other convolution code, and bf16 logits then differ)
-    with_kernel = [inference_detector(det, im) for im in images]
+    # takes other convolution code, and bf16 logits then differ); the
+    # kernel's input in the last call, which is the last request's, is kept
+    nms_inputs = []
+    nms_module.sph2pob_iou_pairwise = _recording(
+        sph2pob_iou_pairwise, nms_inputs, keep_last=True)
+    try:
+        with_kernel = [inference_detector(det, im) for im in images]
+    finally:
+        nms_module.sph2pob_iou_pairwise = sph2pob_iou_pairwise
     torch.cuda.synchronize()
+    # the kernel on the candidates the last request gave it
+    nms_boxes = nms_inputs[-1][1]
+    on_nms_input = {"input": "serve: NMS candidates of the last request",
+                    **check_kernel(KERNELS[0], nms_boxes, nms_boxes, reps,
+                                   identical=False)}
     launched = sph2pob_iou_pairwise.launches
     nms_module.sph2pob_iou_pairwise = sph2pob_iou_pairwise_plain
     try:
@@ -648,8 +731,9 @@ def phase_serve(seed: int):
           "first_request_ms": request_ms[0],
           "steady_request_ms": statistics.median(request_ms[1:]),
           "request_ms": request_ms,
-          "peak_memory_bytes": torch.cuda.max_memory_allocated()})
-    return launches, det, images
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+          "kernel_on_nms_input": on_nms_input})
+    return launches, det, images, on_nms_input
 
 
 @torch.no_grad()
@@ -759,15 +843,22 @@ def train_step_parts(model, det_cfg, optimizer, loader, host_batch,
     return {k: statistics.median(v) for k, v in parts.items()}
 
 
-def _recording(fn, calls: list):
+def _recording(fn, calls: list, keep_last: bool = False):
+    """``fn`` that also appends each call's shapes to ``calls`` — with
+    ``keep_last``, only the last call's, with copies of its inputs."""
     def wrapper(boxes1, boxes2):
-        calls.append([list(boxes1.shape), list(boxes2.shape)])
+        shapes = [list(boxes1.shape), list(boxes2.shape)]
+        if keep_last:
+            calls[:] = [(shapes, boxes1.clone(), boxes2.clone())]
+        else:
+            calls.append(shapes)
         return fn(boxes1, boxes2)
     return wrapper
 
 
-def phase_train(seed: int) -> int:
-    """Returns the pairwise kernel's launches over the trainer's steps."""
+def phase_train(seed: int, reps: int) -> tuple[int, dict]:
+    """Returns the pairwise kernel's launches over the trainer's steps and
+    its check on the assignment input of the fixed batch."""
     device = resolve_device()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -891,6 +982,14 @@ def phase_train(seed: int) -> int:
                 f"anchor targets differ in {name} between the kernel and "
                 "its plain version")
     del with_plain
+    # the kernel on the input the assignment gives it: the batch's padded
+    # gts (B * max_gt rows) against the anchors
+    on_assign_input = {
+        "input": "train: gt_boxes of the fixed batch x the anchors",
+        **check_kernel(KERNELS[0],
+                       batch["gt_boxes"].reshape(-1, ASSIGN_SHAPE[2])
+                       .contiguous(), anchors.contiguous(), reps,
+                       identical=False)}
 
     prof = profiled(lambda: step(batch))
     parts = train_step_parts(model, det_cfg, optimizer, loader, host_batch,
@@ -917,9 +1016,10 @@ def phase_train(seed: int) -> int:
         "sph2pob_iou_kernel_ms_in_step": prof["ms_by_kernel"].get(
             "sph2pob_iou_pairwise"),
         "step_parts_ms_each_synchronised": parts,
+        "kernel_on_assignment_input": on_assign_input,
     })
     emit(out)
-    return launches
+    return launches, on_assign_input
 
 
 def main(argv=None) -> int:
@@ -944,11 +1044,14 @@ def main(argv=None) -> int:
         emit({"phase": "fmad_probe", **fmad_probe(args.seed, args.reps)})
     launches = {k.name: 0 for k in KERNELS}
     launches["sph2pob_iou_aligned"] += phase_iou_tool()
-    served, det, images = phase_serve(args.seed)
+    served, det, images, on_nms_input = phase_serve(args.seed, args.reps)
     launches["sph2pob_iou_pairwise"] += served
     phase_breakdown(det, images[-1], args.reps)
     del det
-    launches["sph2pob_iou_pairwise"] += phase_train(args.seed)
+    trained, on_assign_input = phase_train(args.seed, args.reps)
+    launches["sph2pob_iou_pairwise"] += trained
+    # K1 on the inputs its two paths gave it, beside its seeded shapes
+    shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input]
     idle = [k.name for k in KERNELS if launches[k.name] < 1]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

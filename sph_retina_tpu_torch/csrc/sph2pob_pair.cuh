@@ -1,11 +1,19 @@
 // Per-pair body of the fused Sph2Pob IoU, shared by every kernel that needs it.
 //
-// One call takes two spherical boxes in degrees, (theta, phi, alpha, beta) and
-// for D == 5 also gamma, and returns their IoU in [0, 1]: degree-space jitter
-// and clamp, deg -> rad, the efficient Sph2Pob transform with the in-plane
-// angles held as (cos, sin), the rotated-box jitter in (cos, sin) space, the
-// Green's-theorem clipped boundary integral over the 8 edges, and
-// min(inter, area1, area2) / union.
+// The IoU of two spherical boxes in degrees, (theta, phi, alpha, beta) and for
+// D == 5 also gamma, in [0, 1]: degree-space jitter and clamp, deg -> rad, the
+// efficient Sph2Pob transform with the in-plane angles held as (cos, sin), the
+// rotated-box jitter in (cos, sin) space, the Green's-theorem clipped boundary
+// integral over the 8 edges, and min(inter, area1, area2) / union. It comes in
+// three stages, so that a kernel can do the work of one box once and skip the
+// pairs that cannot overlap:
+//
+//   similar<D>(raw1, raw2)  the pair's degree-space jitter flag;
+//   side_state<Side, D>     everything of ONE box in one jitter state: clamped
+//                           radians, centre vector c, longitude tangent d,
+//                           sides w, h, cos/sin gamma, and the cull radius r;
+//   disjoint<D>(s1, s2)     the exact cull: true only where the IoU is 0.0;
+//   pair_body<D>(s1, s2)    the rest, from the frame axis c1 x c2 to the clamp.
 //
 // The arithmetic repeats sph_retina_tpu_torch/ops/fused_iou.py and
 // sph_retina_tpu_torch/iou/rotated.py operation for operation and in the same
@@ -16,8 +24,50 @@
 // without --use_fast_math (no __sinf, no flushed denormals) and with
 // -fmad=false (see ops/_build.py).
 //
+// Hoisting. The degree-space jitter moves EVERY component of box 1 by the
+// constant -2 eps and of box 2 by +eps, and only its flag belongs to the pair.
+// So a box has exactly two possible states on each side, unjittered and
+// jittered, and everything side_state computes can be computed once per box,
+// side and state, then picked by the pair's flag: the same operations in the
+// same order, so the same bits. (The rotated-box jitter that follows depends
+// on the pair throughout, but uses constant rotations: it stays in pair_body
+// and costs no trigonometry.)
+//
+// The cull and its margin. In pair_body box 1 is a w1 x h1 rectangle centred
+// at (0, 0) and box 2 a w2 x h2 rectangle at (arc, 0), arc =
+// arccos_poly(dot(c1, c2)); a rectangle lies inside the disc of radius
+// R = sqrt(w^2 + h^2) / 2 about its centre. Where the two rectangles are
+// apart, every clipped edge interval in edge_sum_greens is empty, so
+// t_hi == t_lo, the clipped end points are equal, and c = sx0*sy1 - sy0*sx1 is
+// x*y - y*x, which is exactly 0.0 in IEEE arithmetic without contraction: the
+// intersection is 0.0 and so is the IoU (the union is at least the min-side
+// clamp's area). disjoint() claims that when arc > R1 + R2 + kCullMargin.
+// What the margin has to cover, in radians:
+//   - the rotated-box jitter: it moves the centres apart or together by at
+//     most |(eps, eps)| = 1.75e-4, and grows each side by at most
+//     2 eps + kMinSide1 (box 1) or eps + kMinSide2 (box 2), so R by at most
+//     1/sqrt(2) of that: 1.92e-4 and 0.96e-4; the rotations change no R.
+//     Together 4.63e-4;
+//   - the test is in cosines, on the very dot product that pair_body turns
+//     into arc: dot < cos_lb(S), S = r1 + r2 = R1 + R2 + kCullMargin, with
+//     cos_lb(x) = 1 - x^2/2 + x^4/24 - x^6/720 <= cos x for every x (the
+//     alternating series cut after a negative term), so no trigonometry per
+//     box. Rounded in fp32, cos_lb errs by about 2e-7; near 1 an error of
+//     delta in a cosine is delta / sin S in the angle, at most 1e-4 for
+//     S >= kCullMargin. cos_lb falls below -1 from S = 2.79 on, and falls
+//     monotonically, so the test never fires where arc nears pi;
+//   - arccos_poly against the true arccos of the same fp32 dot: ~1e-7 for the
+//     polynomial and ~5e-7 for its rounding; its clamp at 1 - 1e-7 only raises
+//     small arcs; R in fp32: ~1e-6;
+//   - the planar clipping's own rounding, ~1e-6 on coordinates below pi.
+// About 5.7e-4 in all. kCullMargin = 2e-3 rad (0.11 degree) leaves 3.5 times
+// that; it costs the cull nothing measurable. sph2pob_disjoint_plain in
+// ops/fused_iou.py is the same predicate in plain PyTorch, and the CPU tests
+// hold that wherever it says "disjoint" the plain IoU is exactly 0.0.
+//
 // The constants below are the float32 roundings of the plain version's
-// Python doubles; tests/test_torch_fused_iou.py parses them and compares.
+// Python doubles; tests/test_torch_fused_iou.py and
+// tests/test_torch_sph2pob_cull.py parse them and compare.
 #pragma once
 
 namespace sph2pob {
@@ -48,6 +98,12 @@ constexpr float kBig = 1e30f;
 constexpr float kDivEps = 1e-12f;
 constexpr float kHalfPi = (float)(3.141592653589793 / 2.0);
 constexpr float kQuarterPi = (float)(3.141592653589793 / 4.0);
+
+// the cull: margin (radians) and the coefficients of cos_lb
+constexpr double kCullMarginD = 2e-3;
+constexpr float kHalfCullMargin = (float)(kCullMarginD / 2.0);
+constexpr float kCosLb6 = (float)(-1.0 / 720.0);
+constexpr float kCosLb4 = (float)(1.0 / 24.0);
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
@@ -166,76 +222,156 @@ __device__ __forceinline__ float edge_sum_greens(const float (&px)[4],
   return acc;
 }
 
-// IoU of one pair of spherical boxes, degrees in. D is 4 or 5.
+// What one box contributes to a pair, in one side's jitter state. For D == 4
+// cg and sg are unused.
+struct SideState {
+  float cx, cy, cz;  // unit centre vector
+  float dx, dy, dz;  // longitude tangent
+  float w, h;        // sides, radians
+  float cg, sg;      // cos and sin of gamma
+  float r;           // cull radius: sqrt(w^2 + h^2) / 2 + kCullMargin / 2
+};
+
+// Floats of a SideState that pair_body reads (all but r), and how they are
+// kept in shared memory: field k of entry i at base[k * stride + i].
 template <int D>
-__device__ __forceinline__ float pair_iou(const float (&box1)[D],
-                                          const float (&box2)[D]) {
-  float b1[D], b2[D];
+constexpr int kBodyFloats = D == 5 ? 10 : 8;
 
-  // ---- degree-space jitter and clamp ------------------------------------
-  bool similar = false;
-#pragma unroll
-  for (int c = 0; c < D; ++c) similar = similar | (fabsf(box1[c] - box2[c]) < kEps);
-#pragma unroll
-  for (int c = 0; c < D; ++c) {
-    b1[c] = similar ? box1[c] - kEps2 : box1[c];
-    b2[c] = similar ? box2[c] + kEps : box2[c];
-  }
-  b1[0] = clampf(b1[0], kEps2, (float)(360.0 - kEpsD));
-  b2[0] = clampf(b2[0], kEps, (float)(360.0 - 2 * kEpsD));
-#pragma unroll
-  for (int c = 1; c < 4; ++c) {
-    b1[c] = clampf(b1[c], kEps2, (float)(180.0 - kEpsD));
-    b2[c] = clampf(b2[c], kEps, (float)(180.0 - 2 * kEpsD));
-  }
+template <int D>
+__device__ __forceinline__ void store_body(float* base, int stride, int i,
+                                           const SideState& s) {
+  base[0 * stride + i] = s.cx;
+  base[1 * stride + i] = s.cy;
+  base[2 * stride + i] = s.cz;
+  base[3 * stride + i] = s.dx;
+  base[4 * stride + i] = s.dy;
+  base[5 * stride + i] = s.dz;
+  base[6 * stride + i] = s.w;
+  base[7 * stride + i] = s.h;
   if (D == 5) {
-    b1[D - 1] = clampf(b1[D - 1], (float)(-360.0 + 2 * kEpsD), (float)(360.0 - kEpsD));
-    b2[D - 1] = clampf(b2[D - 1], (float)(-360.0 + kEpsD), (float)(360.0 - 2 * kEpsD));
+    base[8 * stride + i] = s.cg;
+    base[9 * stride + i] = s.sg;
   }
+}
+
+template <int D>
+__device__ __forceinline__ SideState load_body(const float* base, int stride,
+                                               int i) {
+  SideState s;
+  s.cx = base[0 * stride + i];
+  s.cy = base[1 * stride + i];
+  s.cz = base[2 * stride + i];
+  s.dx = base[3 * stride + i];
+  s.dy = base[4 * stride + i];
+  s.dz = base[5 * stride + i];
+  s.w = base[6 * stride + i];
+  s.h = base[7 * stride + i];
+  s.cg = D == 5 ? base[8 * stride + i] : 0.0f;
+  s.sg = D == 5 ? base[9 * stride + i] : 0.0f;
+  s.r = 0.0f;
+  return s;
+}
+
+// The degree-space jitter flag of a pair: some component closer than eps.
+template <int D>
+__device__ __forceinline__ bool similar(const float (&box1)[D],
+                                        const float (&box2)[D]) {
+  bool sim = false;
+#pragma unroll
+  for (int c = 0; c < D; ++c) sim = sim | (fabsf(box1[c] - box2[c]) < kEps);
+  return sim;
+}
+
+// One box (Side 1: boxes1, Side 2: boxes2) in one jitter state: the jitter
+// shift, the clamp into the open coordinate ranges, deg -> rad, and what the
+// Sph2Pob transform needs of the box alone.
+template <int Side, int D>
+__device__ __forceinline__ SideState side_state(const float (&box)[D],
+                                                bool jitter) {
+  float b[D];
 #pragma unroll
   for (int c = 0; c < D; ++c) {
-    b1[c] = b1[c] * kDeg2Rad;
-    b2[c] = b2[c] * kDeg2Rad;
+    b[c] = Side == 1 ? (jitter ? box[c] - kEps2 : box[c])
+                     : (jitter ? box[c] + kEps : box[c]);
   }
+  if (Side == 1) {
+    b[0] = clampf(b[0], kEps2, (float)(360.0 - kEpsD));
+#pragma unroll
+    for (int c = 1; c < 4; ++c) b[c] = clampf(b[c], kEps2, (float)(180.0 - kEpsD));
+    if (D == 5)
+      b[D - 1] = clampf(b[D - 1], (float)(-360.0 + 2 * kEpsD), (float)(360.0 - kEpsD));
+  } else {
+    b[0] = clampf(b[0], kEps, (float)(360.0 - 2 * kEpsD));
+#pragma unroll
+    for (int c = 1; c < 4; ++c) b[c] = clampf(b[c], kEps, (float)(180.0 - 2 * kEpsD));
+    if (D == 5)
+      b[D - 1] = clampf(b[D - 1], (float)(-360.0 + kEpsD), (float)(360.0 - 2 * kEpsD));
+  }
+#pragma unroll
+  for (int c = 0; c < D; ++c) b[c] = b[c] * kDeg2Rad;
 
-  // ---- efficient Sph2Pob transform, angles as (cos, sin) ----------------
-  const float sp1 = sinf(b1[1]), cp1 = cosf(b1[1]);
-  const float st1 = sinf(b1[0]), ct1 = cosf(b1[0]);
-  const float sp2 = sinf(b2[1]), cp2 = cosf(b2[1]);
-  const float st2 = sinf(b2[0]), ct2 = cosf(b2[0]);
+  SideState s;
+  const float sp = sinf(b[1]), cp = cosf(b[1]);
+  const float st = sinf(b[0]), ct = cosf(b[0]);
+  s.cx = sp * ct;
+  s.cy = sp * st;
+  s.cz = cp;
+  s.dx = cp * ct;
+  s.dy = cp * st;
+  s.dz = -sp;
+  s.w = b[2];
+  s.h = b[3];
+  s.cg = D == 5 ? cosf(b[D - 1]) : 0.0f;
+  s.sg = D == 5 ? sinf(b[D - 1]) : 0.0f;
+  s.r = 0.5f * sqrtf(b[2] * b[2] + b[3] * b[3]) + kHalfCullMargin;
+  return s;
+}
 
-  // unit centre vectors and longitude tangents
-  const float c1x = sp1 * ct1, c1y = sp1 * st1, c1z = cp1;
-  const float c2x = sp2 * ct2, c2y = sp2 * st2, c2z = cp2;
-  const float d1x = cp1 * ct1, d1y = cp1 * st1, d1z = -sp1;
-  const float d2x = cp2 * ct2, d2y = cp2 * st2, d2z = -sp2;
+// dot(c1, c2), written as pair_body's arccos argument is.
+__device__ __forceinline__ float centre_dot(const SideState& s1,
+                                            const SideState& s2) {
+  return s1.cx * s2.cx + s1.cy * s2.cy + s1.cz * s2.cz;
+}
 
+// True only for pairs whose IoU pair_body returns as exactly 0.0: the centres
+// lie more than R1 + R2 + kCullMargin apart (see the note at the top). Reads
+// c and r of each state.
+__device__ __forceinline__ bool disjoint(const SideState& s1,
+                                         const SideState& s2) {
+  const float sum = s1.r + s2.r;
+  const float x = sum * sum;
+  const float cos_lb = ((kCosLb6 * x + kCosLb4) * x - 0.5f) * x + 1.0f;
+  return centre_dot(s1, s2) < cos_lb;
+}
+
+// IoU of one pair from its two states (each picked by the pair's similar()).
+template <int D>
+__device__ __forceinline__ float pair_body(const SideState& s1,
+                                           const SideState& s2) {
   // frame axis c1 x c2 and in-plane sign reference c1 + c2
-  const float ax = c1y * c2z - c1z * c2y;
-  const float ay = c1z * c2x - c1x * c2z;
-  const float az = c1x * c2y - c1y * c2x;
-  const float rx = c1x + c2x, ry = c1y + c2y, rz = c1z + c2z;
+  const float ax = s1.cy * s2.cz - s1.cz * s2.cy;
+  const float ay = s1.cz * s2.cx - s1.cx * s2.cz;
+  const float az = s1.cx * s2.cy - s1.cy * s2.cx;
+  const float rx = s1.cx + s2.cx, ry = s1.cy + s2.cy, rz = s1.cz + s2.cz;
 
-  const float arc = arccos_poly(c1x * c2x + c1y * c2y + c1z * c2z);
+  const float arc = arccos_poly(centre_dot(s1, s2));
   const float inv_an = rsqrtf(fmaxf(ax * ax + ay * ay + az * az, 1e-24f));
 
   float cos1, sin1, cos2, sin2;
-  angle_cs(d1x, d1y, d1z, ax, ay, az, inv_an, rx, ry, rz, cos1, sin1);
-  angle_cs(d2x, d2y, d2z, ax, ay, az, inv_an, rx, ry, rz, cos2, sin2);
+  angle_cs(s1.dx, s1.dy, s1.dz, ax, ay, az, inv_an, rx, ry, rz, cos1, sin1);
+  angle_cs(s2.dx, s2.dy, s2.dz, ax, ay, az, inv_an, rx, ry, rz, cos2, sin2);
   if (D == 5) {
     // ang -= gamma, by the angle-subtraction identities
-    const float cg1 = cosf(b1[D - 1]), sg1 = sinf(b1[D - 1]);
-    const float n1c = cos1 * cg1 + sin1 * sg1, n1s = sin1 * cg1 - cos1 * sg1;
+    const float n1c = cos1 * s1.cg + sin1 * s1.sg, n1s = sin1 * s1.cg - cos1 * s1.sg;
     cos1 = n1c;
     sin1 = n1s;
-    const float cg2 = cosf(b2[D - 1]), sg2 = sinf(b2[D - 1]);
-    const float n2c = cos2 * cg2 + sin2 * sg2, n2s = sin2 * cg2 - cos2 * sg2;
+    const float n2c = cos2 * s2.cg + sin2 * s2.sg, n2s = sin2 * s2.cg - cos2 * s2.sg;
     cos2 = n2c;
     sin2 = n2s;
   }
 
-  Pob p1 = {0.0f, 0.0f, b1[2], b1[3], cos1, sin1};
-  Pob p2 = {arc, 0.0f, b2[2], b2[3], cos2, sin2};
+  Pob p1 = {0.0f, 0.0f, s1.w, s1.h, cos1, sin1};
+  Pob p2 = {arc, 0.0f, s2.w, s2.h, cos2, sin2};
 
   // ---- rotated-box jitter in (cos, sin) space ----------------------------
   {

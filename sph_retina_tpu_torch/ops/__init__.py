@@ -1,5 +1,6 @@
 from .fused_iou import (
     fused_sph2pob_iou,
+    sph2pob_disjoint_plain,
     sph2pob_iou_aligned_plain,
     sph2pob_iou_pairwise_plain,
 )
@@ -7,6 +8,7 @@ from .sph2pob_iou import sph2pob_iou_aligned, sph2pob_iou_pairwise
 
 __all__ = [
     "fused_sph2pob_iou",
+    "sph2pob_disjoint_plain",
     "sph2pob_iou_aligned",
     "sph2pob_iou_aligned_plain",
     "sph2pob_iou_pairwise",

@@ -18,7 +18,12 @@ This module is the plain PyTorch version of the CUDA kernels in
 repeats this arithmetic operation for operation. It is what the CPU tests
 hold against the JAX package and what the kernel is held against on the
 card, where nothing else calls it but the IoU tool, for its ``fused_plain``
-row.
+row. ``sph2pob_disjoint_plain`` is the kernels' cull in plain PyTorch: the
+pairs it names are those whose IoU is exactly 0.0 and that the kernels skip.
+
+It is written in the kernels' stages: ``jitter_flag`` (the pair's),
+``side_state`` (one box in the state the flag selects, with all the
+trigonometry), ``disjoint`` (the cull) and ``pair_body`` (the rest).
 
 Shape-polymorphic: ``(N,)`` vectors for matched pairs, or broadcast
 ``(N, 1)`` x ``(1, M)`` for the pairwise case. fp32 throughout.
@@ -27,6 +32,7 @@ Shape-polymorphic: ``(N,)`` vectors for matched pairs, or broadcast
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -36,6 +42,8 @@ _EPS = 1e-4 * 1.2345678
 _ANG_EPS = 1e-3 * 1.2345678
 _COS_EPS = 1e-7
 _PI = math.pi
+# The cull's margin in radians; csrc/sph2pob_pair.cuh derives it.
+_CULL_MARGIN = 2e-3
 
 
 def _atan_cephes(x):
@@ -59,27 +67,87 @@ def arccos_poly(x):
     return 2.0 * _atan_cephes(t)
 
 
-def _jitter_spherical(b1, b2):
-    """Pull near-coincident components of a pair apart (degrees), then clamp
-    both boxes into the open coordinate ranges."""
+def jitter_flag(b1, b2):
+    """The pair's degree-space jitter flag: some component of the two boxes
+    closer than eps (degrees)."""
     eps = _EPS
     similar = None
     for x, y in zip(b1, b2):
         c = (x - y).abs() < eps
         similar = c if similar is None else (similar | c)
-    b1 = [torch.where(similar, x - 2 * eps, x) for x in b1]
-    b2 = [torch.where(similar, x + eps, x) for x in b2]
+    return similar
 
-    def clamp(vals, lo, hi):
-        out = [vals[0].clamp(lo, 360.0 - hi)]
-        out += [v.clamp(lo, 180.0 - hi) for v in vals[1:4]]
-        if len(vals) == 5:
-            out.append(vals[4].clamp(-360.0 + lo, 360.0 - hi))
-        return out
 
-    b1 = clamp(b1, 2 * eps, eps)
-    b2 = clamp(b2, eps, 2 * eps)
-    return b1, b2
+def _shift_and_clamp(b, side, similar):
+    """One side's degree-space jitter where ``similar`` (box 1 by -2 eps, box
+    2 by +eps), then the clamp into the open coordinate ranges."""
+    eps = _EPS
+    if side == 1:
+        vals = [torch.where(similar, x - 2 * eps, x) for x in b]
+        lo, hi = 2 * eps, eps
+    else:
+        vals = [torch.where(similar, x + eps, x) for x in b]
+        lo, hi = eps, 2 * eps
+    out = [vals[0].clamp(lo, 360.0 - hi)]
+    out += [v.clamp(lo, 180.0 - hi) for v in vals[1:4]]
+    if len(vals) == 5:
+        out.append(vals[4].clamp(-360.0 + lo, 360.0 - hi))
+    return out
+
+
+def _jitter_spherical(b1, b2):
+    """Pull near-coincident components of a pair apart (degrees), then clamp
+    both boxes into the open coordinate ranges."""
+    similar = jitter_flag(b1, b2)
+    return _shift_and_clamp(b1, 1, similar), _shift_and_clamp(b2, 2, similar)
+
+
+class SideState(NamedTuple):
+    """What one box contributes to a pair in one jitter state (radians);
+    ``cg``, ``sg`` are None for 4-dof boxes."""
+
+    cx: torch.Tensor  # unit centre vector
+    cy: torch.Tensor
+    cz: torch.Tensor
+    dx: torch.Tensor  # longitude tangent
+    dy: torch.Tensor
+    dz: torch.Tensor
+    w: torch.Tensor   # sides
+    h: torch.Tensor
+    cg: torch.Tensor | None  # cos and sin of gamma
+    sg: torch.Tensor | None
+
+
+def side_state(b, side, similar) -> SideState:
+    """Box ``b`` (component tensors in degrees) of ``side`` 1 or 2 in the
+    jitter state ``similar`` selects: jitter and clamp, deg -> rad, and all
+    the trigonometry of the Sph2Pob transform. Its shape is the broadcast of
+    ``b`` and ``similar``: per box for a flag that is a scalar."""
+    b = _shift_and_clamp(b, side, similar)
+    deg2rad = _PI / 180.0
+    b = [v * deg2rad for v in b]
+    sp, cp = torch.sin(b[1]), torch.cos(b[1])
+    st, ct = torch.sin(b[0]), torch.cos(b[0])
+    gamma = len(b) == 5
+    return SideState(sp * ct, sp * st, cp, cp * ct, cp * st, -sp, b[2], b[3],
+                     torch.cos(b[4]) if gamma else None,
+                     torch.sin(b[4]) if gamma else None)
+
+
+def cull_radius(s: SideState):
+    """The radius of the disc about a box's planar rectangle, plus half the
+    cull's margin."""
+    return 0.5 * torch.sqrt(s.w * s.w + s.h * s.h) + _CULL_MARGIN / 2.0
+
+
+def disjoint(s1: SideState, r1, s2: SideState, r2):
+    """True where the centres lie further apart than r1 + r2: the pair's IoU
+    is then exactly 0.0 (the derivation is in ``csrc/sph2pob_pair.cuh``)."""
+    r = r1 + r2
+    x = r * r
+    # 1 - x/2 + x^2/24 - x^3/720 <= cos(sqrt(x)) for every x >= 0
+    cos_lb = ((-1.0 / 720.0 * x + 1.0 / 24.0) * x - 0.5) * x + 1.0
+    return s1.cx * s2.cx + s1.cy * s2.cy + s1.cz * s2.cz < cos_lb
 
 
 def _rot_shift(c, s, delta):
@@ -136,24 +204,14 @@ def _jitter_rotated_cs(p1, p2):
     return (cx1, cy1, w1, h1, c1, s1), (cx2, cy2, w2, h2, c2, s2)
 
 
-def _transform_efficient_cs(b1, b2):
-    """Componentwise efficient Sph2Pob transform with (cos, sin) angle output.
+def _transform_efficient_cs(s1: SideState, s2: SideState):
+    """Componentwise efficient Sph2Pob transform with (cos, sin) angle output,
+    from the two boxes' states on.
 
-    Inputs in radians; returns two 6-tuples (cx, cy, w, h, cos_ang, sin_ang).
+    Returns two 6-tuples (cx, cy, w, h, cos_ang, sin_ang).
     """
-    t1, p1, a1, be1 = b1[0], b1[1], b1[2], b1[3]
-    t2, p2, a2, be2 = b2[0], b2[1], b2[2], b2[3]
-
-    sp1, cp1 = torch.sin(p1), torch.cos(p1)
-    st1, ct1 = torch.sin(t1), torch.cos(t1)
-    sp2, cp2 = torch.sin(p2), torch.cos(p2)
-    st2, ct2 = torch.sin(t2), torch.cos(t2)
-
-    # Unit centre vectors and longitude tangents.
-    c1x, c1y, c1z = sp1 * ct1, sp1 * st1, cp1
-    c2x, c2y, c2z = sp2 * ct2, sp2 * st2, cp2
-    d1x, d1y, d1z = cp1 * ct1, cp1 * st1, -sp1
-    d2x, d2y, d2z = cp2 * ct2, cp2 * st2, -sp2
+    c1x, c1y, c1z = s1.cx, s1.cy, s1.cz
+    c2x, c2y, c2z = s2.cx, s2.cy, s2.cz
 
     # Frame axis (c1 x c2) and in-plane sign reference (c1 + c2).
     ax = c1y * c2z - c1z * c2y
@@ -176,17 +234,36 @@ def _transform_efficient_cs(b1, b2):
         sin_v = sign * torch.sqrt((1.0 - cos_v * cos_v).clamp_min(0.0))
         return cos_v, sin_v
 
-    cos1, sin1 = angle_cs(d1x, d1y, d1z)
-    cos2, sin2 = angle_cs(d2x, d2y, d2z)
-    if len(b1) == 5 and len(b2) == 5:
+    cos1, sin1 = angle_cs(s1.dx, s1.dy, s1.dz)
+    cos2, sin2 = angle_cs(s2.dx, s2.dy, s2.dz)
+    if s1.cg is not None and s2.cg is not None:
         # ang -= gamma  (angle-subtraction identities)
-        cg1, sg1 = torch.cos(b1[4]), torch.sin(b1[4])
+        cg1, sg1 = s1.cg, s1.sg
         cos1, sin1 = cos1 * cg1 + sin1 * sg1, sin1 * cg1 - cos1 * sg1
-        cg2, sg2 = torch.cos(b2[4]), torch.sin(b2[4])
+        cg2, sg2 = s2.cg, s2.sg
         cos2, sin2 = cos2 * cg2 + sin2 * sg2, sin2 * cg2 - cos2 * sg2
 
     zero = torch.zeros_like(arc)
-    return (zero, zero, a1, be1, cos1, sin1), (arc, zero, a2, be2, cos2, sin2)
+    return (zero, zero, s1.w, s1.h, cos1, sin1), \
+        (arc, zero, s2.w, s2.h, cos2, sin2)
+
+
+def pair_body(s1: SideState, s2: SideState):
+    """IoU of a pair from its two states: the transform from the frame axis
+    on, the rotated-box jitter, the Green's-theorem intersection, clipped to
+    [0, 1]."""
+    p1, p2 = _transform_efficient_cs(s1, s2)
+    p1, p2 = _jitter_rotated_cs(p1, p2)
+
+    area1 = (p1[2] * p1[3]).abs()
+    area2 = (p2[2] * p2[3]).abs()
+    # Bound by each box area: the Green's form double-counts boundary runs
+    # shared bitwise-exactly, which the jitter above makes improbable but
+    # cannot rule out; the clamp keeps any residual case in [0, 1].
+    inter = torch.minimum(
+        torch.minimum(intersection_greens_cs(p1, p2), area1), area2)
+    union = area1 + area2 - inter
+    return (inter / union).clamp(0.0, 1.0)
 
 
 def fused_sph2pob_iou(b1, b2):
@@ -200,22 +277,8 @@ def fused_sph2pob_iou(b1, b2):
     """
     b1 = [torch.as_tensor(v, dtype=torch.float32) for v in b1]
     b2 = [torch.as_tensor(v, dtype=torch.float32) for v in b2]
-    b1, b2 = _jitter_spherical(b1, b2)
-    deg2rad = _PI / 180.0
-    b1 = [v * deg2rad for v in b1]
-    b2 = [v * deg2rad for v in b2]
-    p1, p2 = _transform_efficient_cs(b1, b2)
-    p1, p2 = _jitter_rotated_cs(p1, p2)
-
-    area1 = (p1[2] * p1[3]).abs()
-    area2 = (p2[2] * p2[3]).abs()
-    # Bound by each box area: the Green's form double-counts boundary runs
-    # shared bitwise-exactly, which the jitter above makes improbable but
-    # cannot rule out; the clamp keeps any residual case in [0, 1].
-    inter = torch.minimum(
-        torch.minimum(intersection_greens_cs(p1, p2), area1), area2)
-    union = area1 + area2 - inter
-    return (inter / union).clamp(0.0, 1.0)
+    similar = jitter_flag(b1, b2)
+    return pair_body(side_state(b1, 1, similar), side_state(b2, 2, similar))
 
 
 def sph2pob_iou_pairwise_plain(boxes1: torch.Tensor,
@@ -252,3 +315,29 @@ def sph2pob_iou_aligned_plain(boxes1: torch.Tensor,
     d = boxes1.shape[1]
     return fused_sph2pob_iou([boxes1[:, c].float() for c in range(d)],
                              [boxes2[:, c].float() for c in range(d)])
+
+
+def sph2pob_disjoint_plain(boxes1: torch.Tensor,
+                           boxes2: torch.Tensor) -> torch.Tensor:
+    """The kernels' cull: True where a pair's IoU is exactly 0.0 because its
+    boxes lie apart.
+
+    ``boxes1`` and ``boxes2`` are ``(..., D)`` degrees whose leading shapes
+    broadcast — ``b1[:, None]`` x ``b2[None]`` for the pairwise case, two
+    ``(N, D)`` sets for matched pairs. After the degree-space jitter of the
+    IoU, a pair is disjoint where its centre vectors' dot product lies below
+    a lower bound of ``cos(R1 + R2 + margin)``, ``R = sqrt(w^2 + h^2) / 2``
+    the radius of a box's planar rectangle (the derivation is in
+    ``csrc/sph2pob_pair.cuh``). Nothing on the main path calls this; the CPU
+    tests and ``chip_smoke.py`` (each input's culled share) do.
+    """
+    d = boxes1.shape[-1]
+    if d not in (4, 5) or boxes2.shape[-1] != d:
+        raise ValueError(
+            f"expected (..., D) boxes with D in (4, 5) on both sides, got "
+            f"{tuple(boxes1.shape)} and {tuple(boxes2.shape)}")
+    b1 = [boxes1[..., c].float() for c in range(d)]
+    b2 = [boxes2[..., c].float() for c in range(d)]
+    similar = jitter_flag(b1, b2)
+    s1, s2 = side_state(b1, 1, similar), side_state(b2, 2, similar)
+    return disjoint(s1, cull_radius(s1), s2, cull_radius(s2))
