@@ -3,13 +3,19 @@
 
     python3 chip_smoke.py              # every phase, one card
     python3 chip_smoke.py --fmad-probe # also: K1 built with FMA contraction
+    python3 chip_smoke.py --assign-probe  # only: the eager sph2pob_standard
+                                          # assignment at the R50 width
 
-Drives the main paths of ``sph_retina_tpu_torch`` the way a user would, on the
-shipped rotated RetinaNet-R50-FPN config at full width (47 classes, 512x1024,
-bf16, 5-dof boxes) — the HTTP server (``/ping`` and a few ``/predict``
-requests), the trainer (``train.main``, a few optimiser steps at batch 4) and
-the IoU tool (``benchmark_iou.main``) — and holds every CUDA kernel of those
-paths against its plain PyTorch version on the card.
+Drives the main paths of ``sph_retina_tpu_torch`` the way a user would, at
+full width: on the shipped rotated RetinaNet-R50-FPN config (47 classes,
+512x1024, bf16, 5-dof boxes) the HTTP server (``/ping`` and a few
+``/predict`` requests) and the trainer (``train.main``, a few optimiser steps
+at batch 4); on the shipped Sphere-bench config (R18, 256x512, batch 8,
+decoded-box Sph2Pob-CIoU loss) the trainer again; on the shipped PANDORA
+RetinaNet config (R50, 4-dof boxes, ``unbiased_iou`` NMS) one request through
+the server; and the IoU tool (``benchmark_iou.main``, the kernel and the
+other backends) — and holds every CUDA kernel of those paths against its
+plain PyTorch version on the card.
 
 Phases, each printing one JSON line; any failure ends the run non-zero:
 
@@ -22,7 +28,8 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             share of pairs the kernel culls (``sph2pob_disjoint_plain``),
             whose plain IoU must be 0.0
 4. iou_tool the IoU tool runs the aligned kernel (launch counter set to 0
-            before, read after)
+            before, read after), then the seven ``--backends`` rows with their
+            errors against the unbiased oracle
 5. serve    the server answers the requests through the pairwise kernel, the
             records are well formed, and swapping the plain version in keeps
             the same boxes; the kernel is checked and timed as in phase 3 on
@@ -34,7 +41,14 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             plain version in the kernel's place gives the same labels, and a
             step's time, memory and device share are read; the kernel is
             checked and timed as in phase 3 on the batch's assignment input
-7. the kernels' summary line, then the last line
+7. train_iou_loss  ``train.main`` on the Sphere-bench config: finite,
+            positive ``loss_bbox`` every step, one launch of the pairwise
+            kernel a step at (192, 24552), the kernel checked on the last
+            step's input; step time beside the L1 step of the same config,
+            where it goes, memory, device share
+8. serve_unbiased  one request to the PANDORA config's server, whose NMS
+            takes the unbiased oracle (plain PyTorch): ms and memory
+9. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
 Weights are random, made from ``--seed``; no number printed here says
@@ -74,6 +88,7 @@ from sph_retina_tpu_torch.apis import inference_detector, init_detector
 from sph_retina_tpu_torch.boxes import nms as nms_module
 from sph_retina_tpu_torch.data import to_device
 from sph_retina_tpu_torch.data.pipeline import maybe_normalize_images
+from sph_retina_tpu_torch.losses import sph2pob_iou_loss
 from sph_retina_tpu_torch.models import single_stage
 from sph_retina_tpu_torch.ops import _build, fused_iou
 from sph_retina_tpu_torch.ops.fused_iou import (
@@ -92,6 +107,12 @@ from sph_retina_tpu_torch.utils.device import resolve_device
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs",
                       "sph_rotated_retinanet_r50_fpn_120e_pandora.py")
+IOU_CONFIG = os.path.join(ROOT, "configs",
+                          "sph_retinanet_r18_fpn_24e_spherebench.py")
+UNBIASED_CONFIG = os.path.join(ROOT, "configs",
+                               "sph_retinanet_r50_fpn_120e_pandora.py")
+STANDARD_ASSIGN_CONFIG = os.path.join(
+    ROOT, "configs", "sph_retinanet_r50_fpn_120e_indoor360.py")
 TOLERANCE = 1e-4  # the JAX suite's own tolerance for its Pallas kernels
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
 # and the fp32 rate outside the tensor cores.
@@ -101,6 +122,13 @@ N_REQUESTS = 3
 TRAIN_STEPS = 6
 TRAIN_BATCH = 4  # samples_per_gpu of the shipped config
 IOU_TOOL_ITERS = 10
+IOU_TRAIN_STEPS = 4
+IOU_TRAIN_BATCH = 8  # samples_per_gpu of the Sphere-bench config
+TOOL_BACKENDS = ("sph2pob_efficient", "sph2pob_standard", "sph2pob_legacy",
+                 "sph", "fov", "naive", "unbiased")
+TOOL_BACKENDS_SIZE = 100_000
+N_UNBIASED_REQUESTS = 2
+UNBIASED_IMG_SIZE = (512, 1024)
 
 
 def emit(obj: dict) -> None:
@@ -187,6 +215,7 @@ class Kernel:
 
 SERVING_SHAPE = (1000, 1000, 5)       # (N, M, D), once per served image
 ASSIGN_SHAPE = (256, 98208, 5)        # batch 4 x max_gt 64 against the anchors
+IOU_ASSIGN_SHAPE = (192, 24552, 4)    # Sphere-bench: batch 8 x max_gt 24
 TOOL_SHAPE = (1_000_000, 4)           # the IoU tool's default
 KERNELS = (
     Kernel(
@@ -522,6 +551,44 @@ def fmad_probe(seed: int, reps: int) -> dict:
     return out
 
 
+def assign_probe(seed: int) -> dict:
+    """The indoor360 leaf's anchor assignment, whose backend is
+    ``sph2pob_standard`` (eager plain PyTorch through ``sph_overlaps``, no
+    kernel), at the config's full width: one synthetic batch (4 x max_gt 64)
+    against the 98,208 anchors of 512x1024. Its peak memory and time, or,
+    where it does not fit on the card, the error that says so."""
+    device = resolve_device()
+    cfg = apply_overrides(load_config(STANDARD_ASSIGN_CONFIG),
+                          ["data.n_synthetic=4"])
+    _, det_cfg, loader, _, _ = train_cli.build_training(cfg, device, seed)
+    (host_batch,) = list(loader.epoch(0))
+    gt = torch.from_numpy(host_batch["gt_boxes"]).to(device)
+    anchors = det_cfg.flat_anchors(device)
+    out = {"config": os.path.relpath(STANDARD_ASSIGN_CONFIG, ROOT),
+           "backend": det_cfg.assign_backend,
+           "pairs": [gt.shape[0] * gt.shape[1], anchors.shape[0]]}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with torch.no_grad():
+            overlaps = single_stage._batch_pairwise_iou(
+                gt, anchors, det_cfg.assign_backend)
+            torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        out["finite"] = bool(torch.isfinite(overlaps).all())
+        out["shape"] = list(overlaps.shape)
+        del overlaps
+    except torch.cuda.OutOfMemoryError as err:
+        out["did_not_fit"] = str(err).splitlines()[0]
+    out["peak_memory_bytes_above_inputs"] = \
+        torch.cuda.max_memory_allocated() - base
+    out["device_memory_bytes"] = torch.cuda.get_device_properties(
+        device).total_memory
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------------- #
@@ -564,33 +631,64 @@ def phase_kernels(seed: int, reps: int) -> dict:
     return results
 
 
+def _tool_rows(argv) -> list[dict]:
+    """The IoU tool's rows as a user runs it, in process."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = benchmark_iou.main(argv)
+    if rc != 0:
+        raise AssertionError(f"the IoU tool printed {out.getvalue()!r}")
+    return [json.loads(line) for line in out.getvalue().splitlines()
+            if line.startswith("{")]
+
+
 def phase_iou_tool() -> int:
-    """The IoU tool as a user runs it, in process, for both box widths;
-    returns the aligned kernel's launches over the two runs."""
+    """The IoU tool as a user runs it, in process, for both box widths, then
+    with every backend it has at a modest N; returns the aligned kernel's
+    launches over the runs."""
     sph2pob_iou_aligned.launches = 0
     runs = []
     for d in (4, 5):
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            rc = benchmark_iou.main([
-                "--size", str(TOOL_SHAPE[0]), "--box-version", str(d),
-                "--iters", str(IOU_TOOL_ITERS), "--kernel"])
-        rows = [json.loads(line) for line in out.getvalue().splitlines()
-                if line.startswith("{")]
-        if rc != 0 or [r["backend"] for r in rows] != ["fused_plain",
-                                                       "kernel_fused"]:
-            raise AssertionError(f"the IoU tool printed {out.getvalue()!r}")
+        rows = _tool_rows([
+            "--size", str(TOOL_SHAPE[0]), "--box-version", str(d),
+            "--iters", str(IOU_TOOL_ITERS), "--kernel"])
+        if [r["backend"] for r in rows] != ["fused_plain", "kernel_fused"]:
+            raise AssertionError(f"the IoU tool printed {rows}")
         if not rows[1]["max_abs_diff"] <= TOLERANCE:
             raise AssertionError(
                 f"the IoU tool: kernel_fused differs from fused_plain by "
                 f"{rows[1]['max_abs_diff']} at D={d}")
         runs.append(rows)
+    backend_runs = []
+    for d in (4, 5):
+        rows = _tool_rows([
+            "--size", str(TOOL_BACKENDS_SIZE), "--box-version", str(d),
+            "--iters", "3", "--kernel", "--backends", *TOOL_BACKENDS])
+        names = [r["backend"] for r in rows]
+        if names != ["fused_plain", "kernel_fused", *TOOL_BACKENDS]:
+            raise AssertionError(f"the IoU tool's rows: {names}")
+        by_name = {r["backend"]: r for r in rows}
+        for r in rows:
+            if not all(math.isfinite(r[k]) for k in (
+                    "time_s", "mean_err", "median_err", "max_err",
+                    "pearson_r")):
+                raise AssertionError(f"the IoU tool's row {r}")
+        # (the unfused sph2pob_efficient backend is not held to the fused
+        # pipeline at 1e-4: at D=5 the two forms differ by up to 3.3e-4 on
+        # these pairs, in the JAX package as in this one)
+        if by_name["unbiased"]["max_err"] != 0.0 \
+                or not by_name["kernel_fused"]["max_abs_diff"] <= TOLERANCE \
+                or not by_name["sph2pob_efficient"]["pearson_r"] > 0.99:
+            raise AssertionError(f"the IoU tool's errors at D={d}: {rows}")
+        backend_runs.append(rows)
     launches = sph2pob_iou_aligned.launches
-    if launches < 2 * IOU_TOOL_ITERS:
+    if launches < 2 * IOU_TOOL_ITERS + 2 * 4:
         raise AssertionError(
-            f"{launches} launches of the aligned kernel over two runs of "
-            f"{IOU_TOOL_ITERS} iterations: the tool did not go through it")
-    emit({"phase": "iou_tool", "kernel_launches": launches, "rows": runs})
+            f"{launches} launches of the aligned kernel over four runs of "
+            f"{IOU_TOOL_ITERS} and 3 iterations: the tool did not go through "
+            "it")
+    emit({"phase": "iou_tool", "kernel_launches": launches, "rows": runs,
+          "backend_rows": backend_runs})
     return launches
 
 
@@ -623,6 +721,51 @@ def assert_full_width(det) -> None:
         raise AssertionError("the detector does not run in bf16 on the card")
 
 
+@contextlib.contextmanager
+def running_server(det):
+    """The HTTP server of ``det`` on a free local port, answered by one
+    inference worker that has made one call already (as the server's main()
+    does before it listens, so that no request pays for that thread's
+    set-up); yields its base URL, stops every thread it started."""
+    classes = [f"class_{i}" for i in range(det.num_classes)]
+    handler = make_handler(det, classes, 0.0)
+    server = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/ping", timeout=60) as r:
+            if r.status != 200 or json.load(r) != {"status": "ok"}:
+                raise AssertionError("/ping failed")
+        h, w = det.cfg["img_size"]
+        handler.worker.submit(inference_detector, det,
+                              np.zeros((h, w, 3), np.uint8)).result()
+        yield base
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        handler.worker.shutdown()
+    if thread.is_alive():
+        raise AssertionError("the server thread did not stop")
+
+
+def post_image(base: str, image: np.ndarray) -> tuple[float, list]:
+    """One ``/predict`` of an ``np.save``d image: (host ms, records)."""
+    buf = io.BytesIO()
+    np.save(buf, image)
+    req = urllib.request.Request(
+        base + "/predict", data=buf.getvalue(), method="POST",
+        headers={"Content-Type": "application/x-npy"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        status, body = r.status, r.read()
+    ms = (time.perf_counter() - t0) * 1e3
+    if status != 200:
+        raise AssertionError(f"/predict answered {status}: {body!r}")
+    return ms, json.loads(body)
+
+
 def phase_serve(seed: int, reps: int):
     """Returns (the kernel's launches over the served requests, the
     detector, the images, the kernel's check on the NMS input of the last
@@ -641,42 +784,10 @@ def phase_serve(seed: int, reps: int):
     assert_full_width(det)
 
     classes = [f"class_{i}" for i in range(det.num_classes)]
-    handler = make_handler(det, classes, 0.0)
-    server = ThreadingHTTPServer(("127.0.0.1", 0), handler)
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{server.server_address[1]}"
-    request_ms, answers = [], []
-    try:
-        with urllib.request.urlopen(base + "/ping", timeout=60) as r:
-            if r.status != 200 or json.load(r) != {"status": "ok"}:
-                raise AssertionError("/ping failed")
-        # as the server's main() does before it listens: one call in the
-        # worker's thread, so that no request pays for that thread's set-up
-        handler.worker.submit(inference_detector, det,
-                              np.zeros((h, w, 3), np.uint8)).result()
+    with running_server(det) as base:
         sph2pob_iou_pairwise.launches = 0
-        for image in images:
-            buf = io.BytesIO()
-            np.save(buf, image)
-            req = urllib.request.Request(
-                base + "/predict", data=buf.getvalue(), method="POST",
-                headers={"Content-Type": "application/x-npy"})
-            t0 = time.perf_counter()
-            with urllib.request.urlopen(req, timeout=600) as r:
-                status, body = r.status, r.read()
-            request_ms.append((time.perf_counter() - t0) * 1e3)
-            if status != 200:
-                raise AssertionError(f"/predict answered {status}: {body!r}")
-            answers.append(json.loads(body))
+        request_ms, answers = zip(*(post_image(base, im) for im in images))
         launches = sph2pob_iou_pairwise.launches
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=60)
-        handler.worker.shutdown()
-    if thread.is_alive():
-        raise AssertionError("the server thread did not stop")
     if launches < len(images):
         raise AssertionError(
             f"{launches} kernel launches over {len(images)} requests: the "
@@ -730,7 +841,7 @@ def phase_serve(seed: int, reps: int):
           "init_seconds": init_seconds, "head_std_before_calibration": before,
           "first_request_ms": request_ms[0],
           "steady_request_ms": statistics.median(request_ms[1:]),
-          "request_ms": request_ms,
+          "request_ms": list(request_ms),
           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
           "kernel_on_nms_input": on_nms_input})
     return launches, det, images, on_nms_input
@@ -811,11 +922,18 @@ def train_step_parts(model, det_cfg, optimizer, loader, host_batch,
     between two synchronisations and timed by the host's clock (so a part's
     time holds its launches' dispatch and the device's work, whichever is
     longer), median of ``reps``. ``losses`` is ``retina_loss`` less the
-    assignment it contains. The parts add up to more than a step, whose
-    dispatch runs ahead of the device."""
+    assignment it contains; ``loss_bbox`` is the regression loss alone, timed
+    inside it. The parts add up to more than a step, whose dispatch runs
+    ahead of the device."""
     anchors = det_cfg.flat_anchors(device)
     parts = {k: [] for k in ("loader_batch", "h2d", "forward", "assignment",
-                             "losses", "backward", "optimizer")}
+                             "losses", "loss_bbox", "backward", "optimizer")}
+    loss_bbox = det_cfg.loss_bbox
+
+    def timed_loss_bbox(*args, **kwargs):
+        return timed("loss_bbox", lambda: loss_bbox(*args, **kwargs))
+
+    timed_cfg = dataclasses.replace(det_cfg, loss_bbox=timed_loss_bbox)
 
     def timed(name, fn):
         torch.cuda.synchronize()
@@ -835,7 +953,7 @@ def train_step_parts(model, det_cfg, optimizer, loader, host_batch,
         timed("assignment", lambda: single_stage.anchor_targets(
             det_cfg, anchors, *gt))
         losses = timed("losses", lambda: single_stage.retina_loss(
-            det_cfg, cls, reg, anchors, *gt))
+            timed_cfg, cls, reg, anchors, *gt))
         parts["losses"][-1] -= parts["assignment"][-1]
         total = losses["loss_cls"] + losses["loss_bbox"]
         timed("backward", total.backward)
@@ -856,87 +974,11 @@ def _recording(fn, calls: list, keep_last: bool = False):
     return wrapper
 
 
-def phase_train(seed: int, reps: int) -> tuple[int, dict]:
-    """Returns the pairwise kernel's launches over the trainer's steps and
-    its check on the assignment input of the fixed batch."""
-    device = resolve_device()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-
-    # (a) the trainer as a user starts it: one epoch of 6 steps
-    built, calls = {}, []
-    build_training = train_cli.build_training
-
-    def capturing(cfg, dev, seed=0):
-        built["cfg"], built["parts"] = cfg, build_training(cfg, dev, seed)
-        return built["parts"]
-
-    train_cli.build_training = capturing
-    single_stage.sph2pob_iou_pairwise = _recording(sph2pob_iou_pairwise, calls)
-    sph2pob_iou_pairwise.launches = 0
-    said = io.StringIO()
-    try:
-        with tempfile.TemporaryDirectory(
-                dir=os.path.join(ROOT, "build")) as work:
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(said):
-                rc = train_cli.main([
-                    CONFIG, "--synthetic", "--seed", str(seed),
-                    "--max-epochs", "1", "--work-dir", work, "--cfg-options",
-                    f"data.n_synthetic={TRAIN_STEPS * TRAIN_BATCH}",
-                    "log_config.interval=1"])
-            torch.cuda.synchronize()
-            cli_seconds = time.perf_counter() - t0
-            with open(os.path.join(work, "metrics.jsonl")) as f:
-                records = [json.loads(line) for line in f]
-    finally:
-        train_cli.build_training = build_training
-        single_stage.sph2pob_iou_pairwise = sph2pob_iou_pairwise
-    launches = sph2pob_iou_pairwise.launches
-    if rc != 0 or "training done" not in said.getvalue():
-        raise AssertionError(f"the trainer said {said.getvalue()!r}")
-    model, det_cfg, _, optimizer, _ = built["parts"]
-    assert_full_width_training(built["cfg"], model, det_cfg, optimizer, device)
-    steps = [r for r in records if r["prefix"] == "train"]
-    if [r["step"] for r in steps] != list(range(1, TRAIN_STEPS + 1)):
-        raise AssertionError(f"expected {TRAIN_STEPS} logged steps: {records}")
-    for r in steps:
-        if not all(math.isfinite(r[k]) for k in ("loss", "loss_cls",
-                                                 "loss_bbox")):
-            raise AssertionError(f"a loss is not finite: {r}")
-    if launches != TRAIN_STEPS or optimizer.count != TRAIN_STEPS:
-        raise AssertionError(
-            f"{launches} launches of the pairwise kernel over "
-            f"{optimizer.count} steps: one a step expected")
-    want_call = [list(ASSIGN_SHAPE[::2]), list(ASSIGN_SHAPE[1:])]
-    if any(c != want_call for c in calls) or len(calls) != TRAIN_STEPS:
-        raise AssertionError(f"the kernel was called at {calls}")
-    cli_step_ms = [(b["time"] - a["time"]) * 1e3
-                   for a, b in zip(steps, steps[1:])]
-    out = {"phase": "train", "config": os.path.relpath(CONFIG, ROOT),
-           "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
-           "kernel_launches": launches, "kernel_call_shapes": calls[0],
-           "trainable_tensors": len(optimizer.params),
-           "frozen_tensors": len(optimizer.frozen_names),
-           "trainer_seconds": cli_seconds,
-           "trainer_losses": [r["loss"] for r in steps],
-           "trainer_lr_first_last": [optimizer.schedule(0),
-                                     optimizer.schedule(TRAIN_STEPS - 1)],
-           "trainer_step_ms_logged_every_step": statistics.median(cli_step_ms)}
-    del model, optimizer, built
-
-    # (b) a fixed batch repeated, warm-up off for this check only, so that
-    # six steps at the base rate can show the loss falling
-    cfg = apply_overrides(load_config(CONFIG), [
-        "lr_config.warmup_iters=0", f"data.n_synthetic={TRAIN_BATCH}"])
-    model, det_cfg, loader, optimizer, step = train_cli.build_training(
-        cfg, device, seed)
-    (host_batch,) = list(loader.epoch(0))
-    batch = to_device({k: v for k, v in host_batch.items() if k != "img_id"},
-                      device)
-    losses, event_ms, host_ms = [], [], []
-    for _ in range(TRAIN_STEPS):
+def timed_steps(step, batch, n: int) -> dict:
+    """``n`` steps on one batch, each between CUDA events and on the host's
+    clock; the first apart, the median of the rest."""
+    event_ms, host_ms, losses = [], [], []
+    for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
@@ -949,6 +991,112 @@ def phase_train(seed: int, reps: int) -> tuple[int, dict]:
         losses.append({k: float(v) for k, v in metrics.items()})
     if not all(math.isfinite(v) for m in losses for v in m.values()):
         raise AssertionError(f"a loss is not finite: {losses}")
+    return {"first_step_ms": {"events": event_ms[0], "host": host_ms[0]},
+            "steady_step_ms": {"events": statistics.median(event_ms[1:]),
+                               "host": statistics.median(host_ms[1:])},
+            "losses": losses}
+
+
+def drive_trainer(config: str, steps: int, batch: int, seed: int) -> dict:
+    """``train.main`` as a user starts it, one epoch of ``steps`` steps,
+    logging every step. The pairwise kernel's launch counter is set to 0
+    just before and read just after; its calls are recorded (shapes, and
+    the last call's inputs). Returns the config, what ``build_training``
+    built, the per-step log records, the kernel's launches and calls, and
+    the trainer's wall time."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    built, calls, last = {}, [], []
+    build_training = train_cli.build_training
+
+    def capturing(cfg, dev, seed=0):
+        built["cfg"], built["parts"] = cfg, build_training(cfg, dev, seed)
+        return built["parts"]
+
+    def recording(boxes1, boxes2):
+        last[:] = [(boxes1.clone(), boxes2.clone())]
+        return _recording(sph2pob_iou_pairwise, calls)(boxes1, boxes2)
+
+    train_cli.build_training = capturing
+    single_stage.sph2pob_iou_pairwise = recording
+    said = io.StringIO()
+    try:
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "build")) as work:
+            sph2pob_iou_pairwise.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(said):
+                rc = train_cli.main([
+                    config, "--synthetic", "--seed", str(seed),
+                    "--max-epochs", "1", "--work-dir", work, "--cfg-options",
+                    f"data.n_synthetic={steps * batch}",
+                    "log_config.interval=1"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = sph2pob_iou_pairwise.launches
+            with open(os.path.join(work, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+    finally:
+        train_cli.build_training = build_training
+        single_stage.sph2pob_iou_pairwise = sph2pob_iou_pairwise
+    if rc != 0 or "training done" not in said.getvalue():
+        raise AssertionError(f"the trainer said {said.getvalue()!r}")
+    logged = [r for r in records if r["prefix"] == "train"]
+    if [r["step"] for r in logged] != list(range(1, steps + 1)):
+        raise AssertionError(f"expected {steps} logged steps: {records}")
+    for r in logged:
+        if not all(math.isfinite(r[k]) for k in ("loss", "loss_cls",
+                                                 "loss_bbox")):
+            raise AssertionError(f"a loss is not finite: {r}")
+    return {"cfg": built["cfg"], "parts": built["parts"], "steps": logged,
+            "launches": launches, "calls": calls, "last_input": last[0],
+            "seconds": seconds}
+
+
+def phase_train(seed: int, reps: int) -> tuple[int, dict]:
+    """Returns the pairwise kernel's launches over the trainer's steps and
+    its check on the assignment input of the fixed batch."""
+    device = resolve_device()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the trainer as a user starts it: one epoch of 6 steps
+    run = drive_trainer(CONFIG, TRAIN_STEPS, TRAIN_BATCH, seed)
+    model, det_cfg, _, optimizer, _ = run["parts"]
+    assert_full_width_training(run["cfg"], model, det_cfg, optimizer, device)
+    launches, calls, steps = run["launches"], run["calls"], run["steps"]
+    if launches != TRAIN_STEPS or optimizer.count != TRAIN_STEPS:
+        raise AssertionError(
+            f"{launches} launches of the pairwise kernel over "
+            f"{optimizer.count} steps: one a step expected")
+    want_call = [list(ASSIGN_SHAPE[::2]), list(ASSIGN_SHAPE[1:])]
+    if any(c != want_call for c in calls) or len(calls) != TRAIN_STEPS:
+        raise AssertionError(f"the kernel was called at {calls}")
+    cli_seconds = run["seconds"]
+    cli_step_ms = [(b["time"] - a["time"]) * 1e3
+                   for a, b in zip(steps, steps[1:])]
+    out = {"phase": "train", "config": os.path.relpath(CONFIG, ROOT),
+           "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+           "kernel_launches": launches, "kernel_call_shapes": calls[0],
+           "trainable_tensors": len(optimizer.params),
+           "frozen_tensors": len(optimizer.frozen_names),
+           "trainer_seconds": cli_seconds,
+           "trainer_losses": [r["loss"] for r in steps],
+           "trainer_lr_first_last": [optimizer.schedule(0),
+                                     optimizer.schedule(TRAIN_STEPS - 1)],
+           "trainer_step_ms_logged_every_step": statistics.median(cli_step_ms)}
+    del model, optimizer, run
+
+    # (b) a fixed batch repeated, warm-up off for this check only, so that
+    # six steps at the base rate can show the loss falling
+    cfg = apply_overrides(load_config(CONFIG), [
+        "lr_config.warmup_iters=0", f"data.n_synthetic={TRAIN_BATCH}"])
+    model, det_cfg, loader, optimizer, step = train_cli.build_training(
+        cfg, device, seed)
+    (host_batch,) = list(loader.epoch(0))
+    batch = to_device({k: v for k, v in host_batch.items() if k != "img_id"},
+                      device)
+    fixed = timed_steps(step, batch, TRAIN_STEPS)
+    losses = fixed["losses"]
     if not losses[-1]["loss"] < losses[0]["loss"]:
         raise AssertionError(
             f"the loss did not fall on a fixed batch: {losses}")
@@ -1000,9 +1148,8 @@ def phase_train(seed: int, reps: int) -> tuple[int, dict]:
                             "check only; the trainer above ran the config's "
                             "own warm-up",
         "fixed_batch_losses": losses,
-        "first_step_ms": {"events": event_ms[0], "host": host_ms[0]},
-        "steady_step_ms": {"events": statistics.median(event_ms[1:]),
-                           "host": statistics.median(host_ms[1:])},
+        "first_step_ms": fixed["first_step_ms"],
+        "steady_step_ms": fixed["steady_step_ms"],
         "step_ms_enqueued_back_to_back": free_ms,
         "peak_memory_bytes": peak,
         "num_pos": int(with_kernel.num_pos),
@@ -1022,6 +1169,185 @@ def phase_train(seed: int, reps: int) -> tuple[int, dict]:
     return launches, on_assign_input
 
 
+def assert_full_width_iou_training(cfg, model, det_cfg, optimizer) -> None:
+    """Nothing of the shipped Sphere-bench config was narrowed: R18 from
+    scratch, 12 classes, 4-dof boxes, 256x512, bf16, batch 8, max_gt 24,
+    decoded-box Sph2Pob-CIoU, assignment by the fused pairwise kernel."""
+    loss = det_cfg.loss_bbox
+    got = (cfg["model"]["backbone"]["depth"],
+           cfg["model"]["backbone"]["frozen_stages"],
+           cfg["model"]["num_classes"], cfg["model"].get("box_version", 4),
+           tuple(cfg["img_size"]), cfg["bf16"],
+           cfg["data"]["samples_per_gpu"], cfg["data"]["max_gt"],
+           optimizer.grad_clip, det_cfg.assign_backend,
+           det_cfg.reg_decoded_bbox, getattr(loss, "func", None),
+           getattr(loss, "keywords", None),
+           tuple(det_cfg.flat_anchors().shape))
+    want = (18, 0, 12, 4, (256, 512), True, IOU_TRAIN_BATCH,
+            IOU_ASSIGN_SHAPE[0] // IOU_TRAIN_BATCH, 35.0, "sph2pob_efficient",
+            True, sph2pob_iou_loss, {"mode": "ciou", "loss_weight": 1.0},
+            (IOU_ASSIGN_SHAPE[1], 4))
+    if got != want:
+        raise AssertionError(f"not the full-width Sphere-bench config: {got}")
+    if next(model.parameters()).device.type != "cuda" \
+            or model.dtype != torch.bfloat16 \
+            or model.backbone.stage_blocks != (2, 2, 2, 2):
+        raise AssertionError("the detector is not an R18 training in bf16 "
+                             "on the card")
+    frozen = set(optimizer.frozen_names)
+    if "backbone.conv1.weight" not in frozen \
+            or "backbone.layer1_0.conv1.weight" in frozen:
+        raise AssertionError("frozen_stages=0 freezes the stem alone, got "
+                             f"{sorted(frozen)[:4]}...")
+
+
+def phase_train_iou_loss(seed: int, reps: int) -> tuple[int, dict]:
+    """The Sphere-bench config (decoded-box Sph2Pob-CIoU) through the
+    trainer. Returns the pairwise kernel's launches over the trainer's steps
+    and its check on the last step's assignment input."""
+    device = resolve_device()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the trainer as a user starts it: one epoch, one launch a step
+    run = drive_trainer(IOU_CONFIG, IOU_TRAIN_STEPS, IOU_TRAIN_BATCH, seed)
+    trainer_peak = torch.cuda.max_memory_allocated()
+    model, det_cfg, loader, optimizer, step = run["parts"]
+    assert_full_width_iou_training(run["cfg"], model, det_cfg, optimizer)
+    launches, calls, steps = run["launches"], run["calls"], run["steps"]
+    if launches != IOU_TRAIN_STEPS or optimizer.count != IOU_TRAIN_STEPS:
+        raise AssertionError(
+            f"{launches} launches of the pairwise kernel over "
+            f"{optimizer.count} steps: one a step expected")
+    want_call = [list(IOU_ASSIGN_SHAPE[::2]), list(IOU_ASSIGN_SHAPE[1:])]
+    if any(c != want_call for c in calls) or len(calls) != IOU_TRAIN_STEPS:
+        raise AssertionError(f"the kernel was called at {calls}")
+    for r in steps:
+        if not r["loss_bbox"] > 0.0:
+            raise AssertionError(f"loss_bbox is not positive: {r}")
+    gt_flat, anchors = run["last_input"]
+    on_input = {"input": "train_iou_loss: gt_boxes of the trainer's last "
+                         "step x the anchors",
+                **check_kernel(KERNELS[0], gt_flat, anchors, reps,
+                               identical=False)}
+    cli_step_ms = [(b["time"] - a["time"]) * 1e3
+                   for a, b in zip(steps, steps[1:])]
+    cli_seconds = run["seconds"]
+    del model, optimizer, step, loader, run
+
+    # (b) where a step's time goes, on one batch repeated
+    cfg = apply_overrides(load_config(IOU_CONFIG),
+                          [f"data.n_synthetic={IOU_TRAIN_BATCH}"])
+    model, det_cfg, loader, optimizer, step = train_cli.build_training(
+        cfg, device, seed)
+    (host_batch,) = list(loader.epoch(0))
+    batch = to_device({k: v for k, v in host_batch.items() if k != "img_id"},
+                      device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ciou = timed_steps(step, batch, 6)
+    step_peak = torch.cuda.max_memory_allocated()
+    prof = profiled(lambda: step(batch))
+    parts = train_step_parts(model, det_cfg, optimizer, loader, host_batch,
+                             device)
+
+    # (c) the same config with the base config's L1 loss on encoded deltas,
+    # in turns with the CIoU step on the same batch
+    l1_cfg = apply_overrides(load_config(IOU_CONFIG), [
+        "model.loss_bbox={'type':'SphL1Loss','loss_weight':1.0}",
+        "model.reg_decoded_bbox=False",
+        f"data.n_synthetic={IOU_TRAIN_BATCH}"])
+    _, _, _, _, l1_step = train_cli.build_training(l1_cfg, device, seed)
+    l1 = timed_steps(l1_step, batch, 6)
+    l1_prof = profiled(lambda: l1_step(batch))
+    ciou_again = timed_steps(step, batch, 6)
+    del model, optimizer, step, l1_step
+
+    emit({"phase": "train_iou_loss",
+          "config": os.path.relpath(IOU_CONFIG, ROOT),
+          "steps": IOU_TRAIN_STEPS, "batch": IOU_TRAIN_BATCH,
+          "loss_bbox": "Sph2PobIoULoss(mode='ciou') on decoded boxes",
+          "kernel_launches": launches, "kernel_call_shapes": calls[0],
+          "trainer_seconds": cli_seconds,
+          "trainer_loss_bbox": [r["loss_bbox"] for r in steps],
+          "trainer_loss_cls": [r["loss_cls"] for r in steps],
+          "trainer_pos_dropped": [r.get("metric_pos_dropped")
+                                  for r in steps],
+          "trainer_step_ms_logged_every_step": statistics.median(cli_step_ms),
+          "trainer_peak_memory_bytes": trainer_peak,
+          "ciou_step": ciou, "l1_step": l1, "ciou_step_again": ciou_again,
+          "added_step_ms_over_l1": {
+              k: statistics.mean([ciou["steady_step_ms"][k],
+                                  ciou_again["steady_step_ms"][k]])
+              - l1["steady_step_ms"][k] for k in ("events", "host")},
+          "step_peak_memory_bytes": step_peak,
+          "profiled_step_wall_ms": prof["wall_ms"],
+          "profiled_step_device_ms": prof["device_ms"],
+          "device_busy_share": None if prof["device_idle_share"] is None
+          else 1.0 - prof["device_idle_share"],
+          "device_kernel_launches": prof["kernel_launches"],
+          "l1_device_kernel_launches": l1_prof["kernel_launches"],
+          "l1_profiled_step_device_ms": l1_prof["device_ms"],
+          "top_device_ms": prof["top_device_ms"],
+          "sph2pob_iou_kernel_ms_in_step": prof["ms_by_kernel"].get(
+              "sph2pob_iou_pairwise"),
+          "step_parts_ms_each_synchronised": parts,
+          "kernel_on_assignment_input": on_input})
+    return launches, on_input
+
+
+def phase_serve_unbiased(seed: int) -> None:
+    """One request (after one in the worker's thread, as the server's main()
+    makes) to the server of the PANDORA RetinaNet config, whose NMS takes
+    the unbiased oracle through ``sph_overlaps``: plain PyTorch on the card,
+    a (k, k, 40, 8, 3) fp32 product for k NMS candidates."""
+    det = init_detector(UNBIASED_CONFIG, seed=seed)
+    det.model.load_state_dict(seeded_state_dict(det.model, seed))
+    det.model.to(det.device)
+    rng = np.random.default_rng(seed + 1)
+    h, w = det.cfg["img_size"]
+    images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for _ in range(N_UNBIASED_REQUESTS)]
+    calibrate_head(det, images[0])
+    got = (det.cfg["model"]["backbone"]["depth"], det.num_classes,
+           det.box_version, tuple(det.cfg["img_size"]),
+           det.det_cfg.nms_backend, det.det_cfg.nms_pre)
+    if got != (50, 47, 4, UNBIASED_IMG_SIZE, "unbiased_iou", 1000):
+        raise AssertionError(f"not the full-width PANDORA config: {got}")
+
+    nms_calls = []
+    sph_overlaps = nms_module.sph_overlaps
+
+    def recording(boxes1, boxes2, backend):
+        nms_calls.append((list(boxes1.shape), backend))
+        return sph_overlaps(boxes1, boxes2, backend)
+
+    nms_module.sph_overlaps = recording
+    try:
+        with running_server(det) as base:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = sph2pob_iou_pairwise.launches
+            del nms_calls[:]
+            request_ms, answers = zip(*(post_image(base, im)
+                                        for im in images))
+            peak = torch.cuda.max_memory_allocated()
+    finally:
+        nms_module.sph_overlaps = sph_overlaps
+    for records in answers:
+        check_records(records, det)
+    if [b for _, b in nms_calls] != ["unbiased_iou"] * len(images) \
+            or sph2pob_iou_pairwise.launches != before:
+        raise AssertionError(f"the NMS did not take the unbiased oracle: "
+                             f"{nms_calls}")
+    emit({"phase": "serve_unbiased",
+          "config": os.path.relpath(UNBIASED_CONFIG, ROOT),
+          "requests": len(images), "nms_iou_calls": nms_calls,
+          "detections": [len(a) for a in answers],
+          "request_ms": list(request_ms), "peak_memory_bytes": peak})
+    del det
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1031,6 +1357,9 @@ def main(argv=None) -> int:
                    help="also build the pairwise kernel with FMA contraction "
                         "and report its error and time beside the shipped "
                         "build")
+    p.add_argument("--assign-probe", action="store_true",
+                   help="only the device line and the eager sph2pob_standard "
+                        "assignment of the indoor360 config at full width")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -1038,6 +1367,9 @@ def main(argv=None) -> int:
         return 1
 
     kind, smi = phase_device()
+    if args.assign_probe:
+        emit({"phase": "assign_probe", **assign_probe(args.seed)})
+        return 0
     phase_build()
     shapes = phase_kernels(args.seed, args.reps)
     if args.fmad_probe:
@@ -1050,8 +1382,12 @@ def main(argv=None) -> int:
     del det
     trained, on_assign_input = phase_train(args.seed, args.reps)
     launches["sph2pob_iou_pairwise"] += trained
-    # K1 on the inputs its two paths gave it, beside its seeded shapes
-    shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input]
+    trained, on_iou_input = phase_train_iou_loss(args.seed, args.reps)
+    launches["sph2pob_iou_pairwise"] += trained
+    phase_serve_unbiased(args.seed)
+    # K1 on the inputs its paths gave it, beside its seeded shapes
+    shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input,
+                                       on_iou_input]
     idle = [k.name for k in KERNELS if launches[k.name] < 1]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

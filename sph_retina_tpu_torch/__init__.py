@@ -9,10 +9,14 @@ family:
 - the serving path: ``init_detector`` / ``inference_detector`` (``apis.py``)
   and the HTTP server (``python -m sph_retina_tpu_torch.serve``);
 - the training path: ``python -m sph_retina_tpu_torch.train CONFIG`` (anchor
-  assignment through the pairwise kernel, focal + L1 losses, SGD with warm-up,
-  clip, frozen stages and EMA, the synthetic dataset);
+  assignment through the pairwise kernel, focal loss with the L1 or the
+  IoU-family regression losses, SGD with warm-up, clip, frozen stages and
+  EMA, the synthetic dataset);
+- the spherical IoU backends (``iou.api.sph_overlaps``: the three Sph2Pob
+  transforms, the unbiased oracle, Sph-IoU, FoV-IoU, the chart IoU), in plain
+  differentiable PyTorch;
 - the IoU tool: ``python -m sph_retina_tpu_torch.benchmark_iou`` (the aligned
-  kernel against its plain version).
+  kernel against its plain version, the backends against the oracle).
 
 Box conventions, degrees at the boundary, as in the JAX package:
 

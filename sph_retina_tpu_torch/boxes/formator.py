@@ -15,9 +15,27 @@ import torch
 DEFAULT_IMG_SIZE = (512, 1024)  # (H, W) ERP chart used when only ratios matter
 
 
+def xyxy2xywh(boxes: torch.Tensor) -> torch.Tensor:
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1],
+                       dim=-1)
+
+
 def xywh2xyxy(boxes: torch.Tensor) -> torch.Tensor:
     x, y, w, h = boxes.unbind(-1)
     return torch.stack([x - w / 2, y - h / 2, x + w / 2, y + h / 2], dim=-1)
+
+
+def obb2hbb_xywh(obb: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned cover of a rotated box, xywh layout."""
+    cx, cy, w, h, a = obb.unbind(-1)
+    cos_a, sin_a = torch.cos(a).abs(), torch.sin(a).abs()
+    return torch.stack([cx, cy, cos_a * w + sin_a * h, sin_a * w + cos_a * h],
+                       dim=-1)
+
+
+def obb2hbb_xyxy(obb: torch.Tensor) -> torch.Tensor:
+    return xywh2xyxy(obb2hbb_xywh(obb))
 
 
 def sph2pix_box_transform(boxes, img_size=DEFAULT_IMG_SIZE):

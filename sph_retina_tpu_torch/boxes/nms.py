@@ -1,8 +1,10 @@
 """Spherical and planar NMS as fixed-shape masked suppression.
 
 1. top-k pre-selection (``nms_pre`` candidates, score-descending),
-2. one (k, k) IoU matrix — the fused CUDA pairwise kernel for the spherical
-   backend, a cheap chart IoU for the planar path,
+2. one (k, k) IoU matrix — the fused CUDA pairwise kernel for
+   ``sph2pob_efficient``, ``sph_overlaps`` (plain PyTorch) for the other
+   spherical backends, a chart IoU for the planar path (rotated-box IoU for
+   5-dof boxes),
 3. exact greedy suppression as a few vectorised sweeps over the matrix
    (classes kept apart by masking it, since spherical boxes cannot use the
    coordinate-offset trick),
@@ -15,7 +17,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..iou.api import AVAILABLE_BACKENDS, canonical_backend
+from ..iou.api import canonical_backend, sph_overlaps
+from ..iou.rotated import rotated_box_iou
 from ..ops.sph2pob_iou import sph2pob_iou_pairwise
 from .formator import sph2planar_boxes
 
@@ -33,24 +36,18 @@ class NMSResult(NamedTuple):
 def _pairwise_iou(boxes: torch.Tensor, backend: str) -> torch.Tensor:
     if backend in ("planar", "planar_nms"):
         planar = sph2planar_boxes(boxes)
-        if planar.shape[-1] != 4:
-            raise NotImplementedError(
-                "planar NMS of rotated (5-dof) boxes needs the rotated-box "
-                "IoU, which this package does not have yet; use "
-                "test_cfg.iou_calculator='sph2pob_efficient'")
+        if planar.shape[-1] != 4:  # (x, y, w, h, angle) rotated boxes
+            return rotated_box_iou(planar[:, None, :], planar[None, :, :])
         lt = torch.maximum(planar[:, None, :2], planar[None, :, :2])
         rb = torch.minimum(planar[:, None, 2:], planar[None, :, 2:])
         wh = (rb - lt).clamp_min(0.0)
         inter = wh[..., 0] * wh[..., 1]
         area = (planar[:, 2] - planar[:, 0]) * (planar[:, 3] - planar[:, 1])
         return inter / (area[:, None] + area[None, :] - inter + 1e-8)
-    name = canonical_backend(backend)
-    if name not in AVAILABLE_BACKENDS:
-        raise NotImplementedError(
-            f"IoU backend {backend!r} is not available in this package yet; "
-            f"choose 'planar' or one of {AVAILABLE_BACKENDS}")
-    boxes = boxes.float().contiguous()
-    return sph2pob_iou_pairwise(boxes, boxes)
+    if canonical_backend(backend) == "sph2pob_efficient":
+        boxes = boxes.float().contiguous()
+        return sph2pob_iou_pairwise(boxes, boxes)
+    return sph_overlaps(boxes, boxes, backend)
 
 
 def _greedy_suppress(iou: torch.Tensor, valid: torch.Tensor,

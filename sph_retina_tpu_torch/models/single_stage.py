@@ -5,7 +5,9 @@
   channels-last NCHW inside;
 - target assignment and loss are pure functions over the padded batch (gt
   boxes padded to ``max_gt`` with a mask). The anchors x gt IoU matrix of the
-  whole batch is ONE launch of the pairwise kernel at ``(B * max_gt, N)``;
+  whole batch is ONE launch of the pairwise kernel at ``(B * max_gt, N)``
+  for the ``sph2pob_efficient`` backend (the other backends go through
+  ``sph_overlaps``, plain PyTorch);
   every count (positives, dropped positives) stays a 0-dim tensor on the
   device, and nothing is indexed by a mask whose size the host would have to
   learn, so a training step never waits for the device;
@@ -30,7 +32,7 @@ from ..boxes.anchors import SphAnchorGenerator
 from ..boxes.assigner import MaxIoUAssigner
 from ..boxes.coders import SphBBoxCoder
 from ..boxes.nms import NMSResult, sph_batched_nms
-from ..iou.api import AVAILABLE_BACKENDS, canonical_backend
+from ..iou.api import canonical_backend, sph_overlaps
 from ..losses import sigmoid_focal_loss, sph_l1_loss
 from ..ops.sph2pob_iou import sph2pob_iou_pairwise
 from .fpn import FPN
@@ -159,15 +161,16 @@ class AnchorTargets(NamedTuple):
 
 
 def _batch_pairwise_iou(gt: torch.Tensor, anchors: torch.Tensor, backend: str):
-    """(B, G, D) x (N, D) -> (B, G, N), one fused kernel call."""
-    name = canonical_backend(backend)
-    if name not in AVAILABLE_BACKENDS:
-        raise NotImplementedError(
-            f"assigner backend {backend!r} is not available in this package "
-            f"yet; only {list(AVAILABLE_BACKENDS)} and its aliases are")
+    """(B, G, D) x (N, D) -> (B, G, N): for ``sph2pob_efficient`` one launch
+    of the fused pairwise kernel (its plain version on CPU tensors); every
+    other backend through ``sph_overlaps``, plain PyTorch on the tensors'
+    device (``kent`` raises by name there)."""
     b, g, d = gt.shape
     flat = gt.reshape(b * g, d).contiguous()
-    iou = sph2pob_iou_pairwise(flat, anchors.contiguous())
+    if canonical_backend(backend) == "sph2pob_efficient":
+        iou = sph2pob_iou_pairwise(flat, anchors.contiguous())
+    else:
+        iou = sph_overlaps(flat, anchors, backend)
     return iou.reshape(b, g, anchors.shape[0])
 
 

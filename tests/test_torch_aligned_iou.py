@@ -135,9 +135,9 @@ def test_iou_tool_prints_its_rows_on_the_cpu(capsys):
 
 
 def test_iou_tool_refuses_what_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="unbiased"):
+    with pytest.raises(NotImplementedError, match="kent"):
         benchmark_iou.main(["--device", "cpu", "--size", "2000",
-                            "--backends", "unbiased"])
+                            "--backends", "kent"])
     with pytest.raises(ValueError, match="unknown IoU backend"):
         benchmark_iou.main(["--device", "cpu", "--backends", "nonsense"])
     with pytest.raises(ValueError, match="--kernel"):

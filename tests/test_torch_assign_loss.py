@@ -228,8 +228,8 @@ def test_reduce_box_weight_and_build_loss():
     assert tlosses.build_loss({"type": "L1Loss"}).func is tl1.sph_l1_loss
     assert tlosses.build_loss({"type": "FocalLoss", "use_sigmoid": True}
                               ).func is tfocal.sigmoid_focal_loss
-    with pytest.raises(NotImplementedError, match="Sph2PobIoULoss"):
-        tlosses.build_loss({"type": "Sph2PobIoULoss", "mode": "ciou"})
+    with pytest.raises(NotImplementedError, match="Sph2PobKLDLoss"):
+        tlosses.build_loss({"type": "Sph2PobKLDLoss", "loss_weight": 1.0})
     with pytest.raises(ValueError, match="unknown loss"):
         tlosses.build_loss({"type": "NoSuchLoss"})
 
@@ -301,9 +301,9 @@ def test_anchor_targets_equal_the_jax_packages(version, decoded, monkeypatch):
 
 
 def test_assign_backends_that_wait_raise_by_name():
-    cfg = tss.retina_config(7, img_size=(64, 128), assign_backend="unbiased_iou")
+    cfg = tss.retina_config(7, img_size=(64, 128), assign_backend="kent_iou")
     gt = torch.ones((1, 2, 4))
-    with pytest.raises(NotImplementedError, match="unbiased"):
+    with pytest.raises(NotImplementedError, match="kent"):
         tss.anchor_targets(cfg, cfg.flat_anchors(), gt,
                            torch.zeros((1, 2), dtype=torch.int32),
                            torch.ones((1, 2), dtype=torch.bool))

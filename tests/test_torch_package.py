@@ -112,10 +112,10 @@ def test_rotated_config_builds_the_serving_detector_config():
 
 def test_a_config_whose_loss_is_not_available_still_builds_for_inference():
     cfg = tconfig.load_config(os.path.join(
-        REPO, "configs", "sph_retinanet_r18_fpn_24e_spherebench.py"))
+        REPO, "configs", "sph_kent_retinanet_kld_120e_indoor360.py"))
     det = build_detector_config(cfg)
-    assert det.reg_decoded_bbox and det.num_classes == 12
-    with pytest.raises(NotImplementedError, match="Sph2PobIoULoss"):
+    assert det.reg_decoded_bbox and det.num_classes == 37
+    with pytest.raises(NotImplementedError, match="KentLoss"):
         det.loss_bbox(torch.zeros((2, 4)), torch.zeros((2, 4)))
 
 
