@@ -13,9 +13,11 @@ full width: on the shipped rotated RetinaNet-R50-FPN config (47 classes,
 at batch 4); on the shipped Sphere-bench config (R18, 256x512, batch 8,
 decoded-box Sph2Pob-CIoU loss) the trainer again; on the shipped PANDORA
 RetinaNet config (R50, 4-dof boxes, ``unbiased_iou`` NMS) one request through
-the server; and the IoU tool (``benchmark_iou.main``, the kernel and the
-other backends) — and holds every CUDA kernel of those paths against its
-plain PyTorch version on the card.
+the server; the trainer on the shipped SSD-VGG16, Kent-KLD, 5-dof Kent and
+FCOS-R50 configs and one ``inference_detector`` request each to the FCOS, SSD
+and Kent-KLD configs; and the IoU tool (``benchmark_iou.main``, the kernel
+and the other backends) — and holds every CUDA kernel of those paths against
+its plain PyTorch version on the card.
 
 Phases, each printing one JSON line; any failure ends the run non-zero:
 
@@ -48,7 +50,18 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             where it goes, memory, device share
 8. serve_unbiased  one request to the PANDORA config's server, whose NMS
             takes the unbiased oracle (plain PyTorch): ms and memory
-9. the kernels' summary line, then the last line
+9. train_ssd  ``train.main`` on the SSD-VGG16 config: one launch of the
+            pairwise kernel a step at (256, 49056) D=4, the kernel bitwise
+            equal to its plain version on the last step's input; a fixed
+            batch's step time, memory, device share
+10. train_kent  ``train.main`` on the Kent-KLD config (every loss finite),
+            its Kent assignment alone (time, device time, memory), then two
+            steps of the 5-dof Kent config with delta-L1
+11. train_fcos  ``train.main`` on the FCOS-R50 config, then a fixed batch:
+            step time, ``loss_centerness``, memory, device share
+12. serve_families  one ``inference_detector`` request each to the FCOS,
+            SSD and Kent-KLD configs: non-empty, well-formed results
+13. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
 Weights are random, made from ``--seed``; no number printed here says
@@ -88,7 +101,11 @@ from sph_retina_tpu_torch.apis import inference_detector, init_detector
 from sph_retina_tpu_torch.boxes import nms as nms_module
 from sph_retina_tpu_torch.data import to_device
 from sph_retina_tpu_torch.data.pipeline import maybe_normalize_images
-from sph_retina_tpu_torch.losses import sph2pob_iou_loss
+from sph_retina_tpu_torch.losses import (
+    sph2pob_iou_loss,
+    sph_kent_loss,
+    sph_l1_loss,
+)
 from sph_retina_tpu_torch.models import single_stage
 from sph_retina_tpu_torch.ops import _build, fused_iou
 from sph_retina_tpu_torch.ops.fused_iou import (
@@ -113,6 +130,13 @@ UNBIASED_CONFIG = os.path.join(ROOT, "configs",
                                "sph_retinanet_r50_fpn_120e_pandora.py")
 STANDARD_ASSIGN_CONFIG = os.path.join(
     ROOT, "configs", "sph_retinanet_r50_fpn_120e_indoor360.py")
+SSD_CONFIG = os.path.join(ROOT, "configs", "sph_ssd_vgg16_120e_indoor360.py")
+KENT_KLD_CONFIG = os.path.join(ROOT, "configs",
+                               "sph_kent_retinanet_kld_120e_indoor360.py")
+KENT_L1_CONFIG = os.path.join(ROOT, "configs",
+                              "sph_kent_retinanet_r50_fpn_120e_indoor360.py")
+FCOS_CONFIG = os.path.join(ROOT, "configs",
+                           "sph_fcos_r50_fpn_120e_indoor360.py")
 TOLERANCE = 1e-4  # the JAX suite's own tolerance for its Pallas kernels
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
 # and the fp32 rate outside the tensor cores.
@@ -129,6 +153,12 @@ TOOL_BACKENDS = ("sph2pob_efficient", "sph2pob_standard", "sph2pob_legacy",
 TOOL_BACKENDS_SIZE = 100_000
 N_UNBIASED_REQUESTS = 2
 UNBIASED_IMG_SIZE = (512, 1024)
+SSD_TRAIN_STEPS = 4
+SSD_TRAIN_BATCH = 4      # samples_per_gpu of the indoor360 leaf
+KENT_TRAIN_STEPS = 3     # the Kent-KLD config, batch 1
+KENT_L1_STEPS = 2        # the Kent config with delta-L1, 5-dof, batch 1
+FCOS_TRAIN_STEPS = 3
+FCOS_TRAIN_BATCH = 4
 
 
 def emit(obj: dict) -> None:
@@ -216,6 +246,8 @@ class Kernel:
 SERVING_SHAPE = (1000, 1000, 5)       # (N, M, D), once per served image
 ASSIGN_SHAPE = (256, 98208, 5)        # batch 4 x max_gt 64 against the anchors
 IOU_ASSIGN_SHAPE = (192, 24552, 4)    # Sphere-bench: batch 8 x max_gt 24
+SSD_ASSIGN_SHAPE = (256, 49056, 4)    # SSD-VGG16: batch 4 x max_gt 64
+KENT_ASSIGN_PAIRS = (64, 98208)       # Kent-KLD: batch 1 x max_gt 64
 TOOL_SHAPE = (1_000_000, 4)           # the IoU tool's default
 KERNELS = (
     Kernel(
@@ -1048,8 +1080,8 @@ def drive_trainer(config: str, steps: int, batch: int, seed: int) -> dict:
                                                  "loss_bbox")):
             raise AssertionError(f"a loss is not finite: {r}")
     return {"cfg": built["cfg"], "parts": built["parts"], "steps": logged,
-            "launches": launches, "calls": calls, "last_input": last[0],
-            "seconds": seconds}
+            "launches": launches, "calls": calls,
+            "last_input": last[0] if last else None, "seconds": seconds}
 
 
 def phase_train(seed: int, reps: int) -> tuple[int, dict]:
@@ -1348,6 +1380,331 @@ def phase_serve_unbiased(seed: int) -> None:
     del det
 
 
+
+# --------------------------------------------------------------------------- #
+# the SSD, Kent and FCOS families
+# --------------------------------------------------------------------------- #
+def fixed_batch(config: str, batch: int, seed: int, device):
+    """``build_training`` of a config on one synthetic batch of ``batch``
+    images (warm-up as the config has it): (model, detector config,
+    optimiser, train step, the batch on the card)."""
+    cfg = apply_overrides(load_config(config), [f"data.n_synthetic={batch}"])
+    model, det_cfg, loader, optimizer, step = train_cli.build_training(
+        cfg, device, seed)
+    (host_batch,) = list(loader.epoch(0))
+    on_card = to_device({k: v for k, v in host_batch.items()
+                         if k != "img_id"}, device)
+    return model, det_cfg, optimizer, step, on_card
+
+
+def step_report(step, batch, n: int) -> dict:
+    """``n`` timed steps on one batch, their peak memory, one profiled step
+    (device time, busy share, launches, the largest kernels)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = timed_steps(step, batch, n)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profiled(lambda: step(batch))
+    return {**timed, "peak_memory_bytes": peak,
+            "profiled_step_wall_ms": prof["wall_ms"],
+            "profiled_step_device_ms": prof["device_ms"],
+            "device_busy_share": None if prof["device_idle_share"] is None
+            else 1.0 - prof["device_idle_share"],
+            "device_kernel_launches": prof["kernel_launches"],
+            "top_device_ms": prof["top_device_ms"][:6],
+            "sph2pob_iou_kernel_ms_in_step": prof["ms_by_kernel"].get(
+                "sph2pob_iou_pairwise")}
+
+
+def _loss_of(det_cfg):
+    loss = det_cfg.loss_bbox
+    return getattr(loss, "func", loss), getattr(loss, "keywords", None)
+
+
+def _on_card_in_bf16(model, what: str) -> None:
+    if next(model.parameters()).device.type != "cuda" \
+            or model.dtype != torch.bfloat16:
+        raise AssertionError(f"the {what} does not run in bf16 on the card")
+
+
+def assert_full_width_ssd(cfg, model, det_cfg) -> None:
+    """The shipped SSD-VGG16 indoor360 config, nothing narrowed."""
+    got = (cfg["model"]["type"], det_cfg.num_classes, det_cfg.box_version,
+           det_cfg.img_size, cfg["bf16"], cfg["data"]["samples_per_gpu"],
+           cfg["data"]["max_gt"], cfg["optimizer"]["lr"],
+           det_cfg.assign_backend, det_cfg.reg_decoded_bbox,
+           det_cfg.loss_pos_topk, *_loss_of(det_cfg),
+           tuple(det_cfg.flat_anchors().shape))
+    want = ("SphSSD", 37, 4, (512, 1024), True, SSD_TRAIN_BATCH,
+            SSD_ASSIGN_SHAPE[0] // SSD_TRAIN_BATCH, 2e-3, "sph2pob_efficient",
+            True, 512, sph2pob_iou_loss, {"mode": "iou", "loss_weight": 1.0},
+            (SSD_ASSIGN_SHAPE[1], 4))
+    if got != want:
+        raise AssertionError(f"not the full-width SSD config: {got}")
+    _on_card_in_bf16(model, "SSD")
+    if sum(1 for n, _ in model.backbone.named_children()
+           if n.startswith("conv")) != 15:
+        raise AssertionError("not VGG16's 13 convs + conv6 + conv7")
+
+
+def assert_full_width_kent(cfg, model, det_cfg, box_version: int,
+                           loss) -> None:
+    """A shipped Kent config: R50, 37 classes, 512x1024, bf16, batch 1,
+    max_gt 64, assignment by the Kent KLD surrogate."""
+    got = (cfg["model"].get("type", "SphRetinaNet"),
+           cfg["model"]["backbone"]["depth"], det_cfg.num_classes,
+           det_cfg.box_version, det_cfg.img_size, cfg["bf16"],
+           cfg["data"]["samples_per_gpu"], cfg["data"]["max_gt"],
+           det_cfg.assign_backend, _loss_of(det_cfg)[0],
+           tuple(det_cfg.flat_anchors().shape))
+    want = ("SphRetinaNet", 50, 37, box_version, (512, 1024), True, 1,
+            KENT_ASSIGN_PAIRS[0], "kent", loss,
+            (KENT_ASSIGN_PAIRS[1], box_version))
+    if got != want:
+        raise AssertionError(f"not the full-width Kent config: {got}")
+    _on_card_in_bf16(model, "Kent RetinaNet")
+
+
+def assert_full_width_fcos(cfg, model, det_cfg) -> None:
+    """The shipped FCOS-R50 indoor360 config, nothing narrowed."""
+    got = (cfg["model"]["type"], cfg["model"]["backbone"]["depth"],
+           det_cfg.num_classes, det_cfg.box_version, det_cfg.img_size,
+           cfg["bf16"], cfg["data"]["samples_per_gpu"], cfg["data"]["max_gt"],
+           *_loss_of(det_cfg),
+           sum(p.shape[0] for p in det_cfg.level_points()[0]))
+    want = ("SphFCOS", 50, 37, 4, (512, 1024), True, FCOS_TRAIN_BATCH, 64,
+            sph2pob_iou_loss, {"mode": "iou", "loss_weight": 1.0}, 10912)
+    if got != want:
+        raise AssertionError(f"not the full-width FCOS config: {got}")
+    _on_card_in_bf16(model, "FCOS")
+
+
+def trainer_summary(run) -> dict:
+    steps = run["steps"]
+    return {"kernel_launches": run["launches"],
+            "trainer_seconds": run["seconds"],
+            "trainer_losses": [{k: r[k] for k in r
+                                if k.startswith(("loss", "metric"))}
+                               for r in steps],
+            "trainer_step_ms_logged_every_step": statistics.median(
+                (b["time"] - a["time"]) * 1e3
+                for a, b in zip(steps, steps[1:]))}
+
+
+def phase_train_ssd(seed: int, reps: int) -> tuple[int, dict]:
+    """The SSD-VGG16 config through the trainer: one launch of the pairwise
+    kernel a step at (256, 49056) D=4 (its third real input), bitwise equal
+    to the plain version on the last step's input; then a fixed batch.
+    Returns the kernel's launches over the trainer's steps and its check."""
+    device = resolve_device()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = drive_trainer(SSD_CONFIG, SSD_TRAIN_STEPS, SSD_TRAIN_BATCH, seed)
+    trainer_peak = torch.cuda.max_memory_allocated()
+    model, det_cfg, _, optimizer, _ = run["parts"]
+    assert_full_width_ssd(run["cfg"], model, det_cfg)
+    launches, calls = run["launches"], run["calls"]
+    if launches != SSD_TRAIN_STEPS or optimizer.count != SSD_TRAIN_STEPS:
+        raise AssertionError(
+            f"{launches} launches of the pairwise kernel over "
+            f"{optimizer.count} steps: one a step expected")
+    want_call = [list(SSD_ASSIGN_SHAPE[::2]), list(SSD_ASSIGN_SHAPE[1:])]
+    if any(c != want_call for c in calls) or len(calls) != SSD_TRAIN_STEPS:
+        raise AssertionError(f"the kernel was called at {calls}")
+    gt_flat, anchors = run["last_input"]
+    on_input = {"input": "train_ssd: gt_boxes of the trainer's last step x "
+                         "the SSD anchors",
+                **check_kernel(KERNELS[0], gt_flat, anchors, reps,
+                               identical=False)}
+    if not on_input["bitwise_equal"]:
+        raise AssertionError(f"the kernel differs from its plain version "
+                             f"by {on_input['max_abs_err']} at the SSD input")
+    summary = trainer_summary(run)
+    del model, optimizer, run
+
+    _, _, _, step, batch = fixed_batch(SSD_CONFIG, SSD_TRAIN_BATCH, seed,
+                                       device)
+    report = step_report(step, batch, 5)
+    emit({"phase": "train_ssd", "config": os.path.relpath(SSD_CONFIG, ROOT),
+          "steps": SSD_TRAIN_STEPS, "batch": SSD_TRAIN_BATCH,
+          "kernel_call_shapes": calls[0], **summary,
+          "trainer_peak_memory_bytes": trainer_peak,
+          "fixed_batch": report, "kernel_on_assignment_input": on_input})
+    return launches, on_input
+
+
+def phase_train_kent(seed: int) -> None:
+    """The Kent-KLD config (Kent assignment at (64, 98208), KentLoss on
+    decoded boxes) through the trainer, the Kent assignment alone, and two
+    trainer steps of the 5-dof Kent config with delta-L1. Every loss of
+    every step finite; no kernel runs on these paths."""
+    device = resolve_device()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = drive_trainer(KENT_KLD_CONFIG, KENT_TRAIN_STEPS, 1, seed)
+    trainer_peak = torch.cuda.max_memory_allocated()
+    model, det_cfg, _, _, _ = run["parts"]
+    assert_full_width_kent(run["cfg"], model, det_cfg, 4, sph_kent_loss)
+    kld = trainer_summary(run)
+    del model, run
+
+    # the Kent assignment of one batch alone: its padded gts x the anchors
+    model, det_cfg, _, step, batch = fixed_batch(KENT_KLD_CONFIG, 1, seed,
+                                                 device)
+    anchors = det_cfg.flat_anchors(device)
+
+    @torch.no_grad()
+    def assign():
+        return single_stage._batch_pairwise_iou(batch["gt_boxes"], anchors,
+                                                det_cfg.assign_backend)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    overlaps = assign()
+    torch.cuda.synchronize()
+    assign_peak = torch.cuda.max_memory_allocated() - base
+    if tuple(overlaps.shape) != (1, *KENT_ASSIGN_PAIRS) \
+            or not bool(torch.isfinite(overlaps).all()):
+        raise AssertionError(f"Kent overlaps {tuple(overlaps.shape)}, "
+                             "finite: " + str(bool(torch.isfinite(
+                                 overlaps).all())))
+    max_overlap = float(overlaps.max())
+    del overlaps
+    assign_ms = median_ms(assign, 5, warmup=1)
+    assign_prof = profiled(assign)
+    report = step_report(step, batch, 4)
+    del model, step, batch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = drive_trainer(KENT_L1_CONFIG, KENT_L1_STEPS, 1, seed)
+    l1_peak = torch.cuda.max_memory_allocated()
+    model, det_cfg, _, _, _ = run["parts"]
+    assert_full_width_kent(run["cfg"], model, det_cfg, 5, sph_l1_loss)
+    l1 = trainer_summary(run)
+    del model, run
+    if kld["kernel_launches"] or l1["kernel_launches"]:
+        raise AssertionError("the Kent paths launched the pairwise kernel")
+    emit({"phase": "train_kent",
+          "config": os.path.relpath(KENT_KLD_CONFIG, ROOT),
+          "steps": KENT_TRAIN_STEPS, "batch": 1, **kld,
+          "trainer_peak_memory_bytes": trainer_peak,
+          "kent_assignment": {
+              "pairs": list(KENT_ASSIGN_PAIRS), "events_ms": assign_ms,
+              "device_ms": assign_prof["device_ms"],
+              "device_kernel_launches": assign_prof["kernel_launches"],
+              "peak_memory_bytes_above_inputs": assign_peak,
+              "max_overlap": max_overlap},
+          "fixed_batch": report,
+          "l1_config": os.path.relpath(KENT_L1_CONFIG, ROOT),
+          "l1_steps": KENT_L1_STEPS, "l1_trainer": l1,
+          "l1_trainer_peak_memory_bytes": l1_peak})
+
+
+def phase_train_fcos(seed: int) -> None:
+    """The FCOS-R50 config through the trainer (targets for 10,912 points x
+    64 gts a image, the Sph2Pob IoU loss on all 43,648 rows a step), then a
+    fixed batch. No kernel runs on this path."""
+    device = resolve_device()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = drive_trainer(FCOS_CONFIG, FCOS_TRAIN_STEPS, FCOS_TRAIN_BATCH, seed)
+    trainer_peak = torch.cuda.max_memory_allocated()
+    model, det_cfg, _, _, _ = run["parts"]
+    assert_full_width_fcos(run["cfg"], model, det_cfg)
+    summary = trainer_summary(run)
+    if summary["kernel_launches"]:
+        raise AssertionError("the FCOS path launched the pairwise kernel")
+    if not all(math.isfinite(r["loss_centerness"]) and r["loss_centerness"] > 0
+               for r in run["steps"]):
+        raise AssertionError(f"loss_centerness: {summary['trainer_losses']}")
+    del model, run
+    _, _, _, step, batch = fixed_batch(FCOS_CONFIG, FCOS_TRAIN_BATCH, seed,
+                                       device)
+    report = step_report(step, batch, 5)
+    emit({"phase": "train_fcos", "config": os.path.relpath(FCOS_CONFIG, ROOT),
+          "steps": FCOS_TRAIN_STEPS, "batch": FCOS_TRAIN_BATCH, **summary,
+          "loss_centerness": [m["loss_centerness"]
+                              for m in report["losses"]],
+          "trainer_peak_memory_bytes": trainer_peak, "fixed_batch": report})
+
+
+@torch.no_grad()
+def calibrate_family_head(det, image: np.ndarray, cls_std=2.0,
+                          reg_std=0.3) -> dict:
+    """``calibrate_head`` for every family: rescale the output convs so
+    that, on a seeded image, the logits have standard deviation ``cls_std``
+    and the regression outputs ``reg_std`` (FCOS: its log-distances, about
+    log 32 pixels), so that scores pass ``score_thr`` and boxes stay off the
+    coder's clamps."""
+    head = det.model.bbox_head
+    if hasattr(head, "retina_cls"):
+        return calibrate_head(det, image, cls_std, reg_std)
+    x = maybe_normalize_images(torch.from_numpy(image[None]).to(det.device))
+    outs = det.model(x)
+    if hasattr(head, "conv_cls"):  # FCOS: one conv each, shared by levels
+        cls = torch.cat([c.flatten() for c in outs[0]])
+        log_dist = torch.cat([r.log().flatten() for r in outs[1]])
+        head.conv_cls.weight.mul_(cls_std / float(cls.std()))
+        head.conv_reg.weight.mul_(reg_std / float(log_dist.std()))
+        head.conv_reg.bias.fill_(math.log(32.0))
+        return {"cls_std": float(cls.std()),
+                "log_distance_std": float(log_dist.std())}
+    before = {"cls_std": [], "reg_std": []}  # SSD: one conv each a level
+    for i, (cls, reg) in enumerate(zip(*outs)):
+        before["cls_std"].append(float(cls.std()))
+        before["reg_std"].append(float(reg.std()))
+        getattr(head, f"cls_conv_{i}").weight.mul_(cls_std / float(cls.std()))
+        getattr(head, f"reg_conv_{i}").weight.mul_(reg_std / float(reg.std()))
+    return before
+
+
+def assert_full_width_served(det, family: str) -> None:
+    got = (det.cfg["model"].get("type", "SphRetinaNet"), det.num_classes,
+           tuple(det.cfg["img_size"]), det.cfg["bf16"])
+    if got != (family, 37, (512, 1024), True):
+        raise AssertionError(f"not the full-width {family} config: {got}")
+    _on_card_in_bf16(det.model, family)
+
+
+def phase_serve_families(seed: int) -> None:
+    """One ``inference_detector`` request each (after one warm-up call) to
+    the FCOS-R50, SSD-VGG16 and Kent-KLD configs at full width, seeded
+    weights: a non-empty result of finite boxes and scores in [0, 1]."""
+    rows = []
+    for config, family in ((FCOS_CONFIG, "SphFCOS"), (SSD_CONFIG, "SphSSD"),
+                           (KENT_KLD_CONFIG, "SphRetinaNet")):
+        det = init_detector(config, seed=seed)
+        det.model.load_state_dict(seeded_state_dict(det.model, seed))
+        det.model.to(det.device)
+        assert_full_width_served(det, family)
+        rng = np.random.default_rng(seed + 2)
+        image = rng.integers(0, 256, (512, 1024, 3), dtype=np.uint8)
+        before = calibrate_family_head(det, image)
+        inference_detector(det, image)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = inference_detector(det, image)
+        ms = (time.perf_counter() - t0) * 1e3
+        n_det = sum(len(a) for a in result)
+        if len(result) != det.num_classes or n_det == 0:
+            raise AssertionError(f"{family}: {n_det} detections")
+        for a in result:
+            if a.shape[1:] != (det.box_version + 1,) \
+                    or not np.isfinite(a).all() \
+                    or not ((a[:, -1] >= 0) & (a[:, -1] <= 1)).all():
+                raise AssertionError(f"{family}: malformed result {a[:2]}")
+        rows.append({"config": os.path.relpath(config, ROOT),
+                     "family": family, "nms_backend": det.det_cfg.nms_backend,
+                     "detections": n_det, "request_ms": ms,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "head_std_before_calibration": before})
+        del det
+    emit({"phase": "serve_families", "requests": rows})
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1385,9 +1742,14 @@ def main(argv=None) -> int:
     trained, on_iou_input = phase_train_iou_loss(args.seed, args.reps)
     launches["sph2pob_iou_pairwise"] += trained
     phase_serve_unbiased(args.seed)
+    trained, on_ssd_input = phase_train_ssd(args.seed, args.reps)
+    launches["sph2pob_iou_pairwise"] += trained
+    phase_train_kent(args.seed)
+    phase_train_fcos(args.seed)
+    phase_serve_families(args.seed)
     # K1 on the inputs its paths gave it, beside its seeded shapes
     shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input,
-                                       on_iou_input]
+                                       on_iou_input, on_ssd_input]
     idle = [k.name for k in KERNELS if launches[k.name] < 1]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

@@ -13,9 +13,8 @@ plain fused pipeline:
   (``ops.sph2pob_iou_aligned``; needs the CUDA device);
 - one row a backend named by ``--backends``: ``sph_overlaps(...,
   is_aligned=True)``, plain PyTorch, for any of ``sph2pob_efficient``,
-  ``sph2pob_standard``, ``sph2pob_legacy``, ``sph``, ``fov``, ``naive`` and
-  ``unbiased`` (``kent`` is not part of this package yet and raises
-  ``NotImplementedError`` by name).
+  ``sph2pob_standard``, ``sph2pob_legacy``, ``sph``, ``fov``, ``naive``,
+  ``kent`` and ``unbiased``.
 
 With ``--backends``, every row also has its error against the ``unbiased``
 oracle: ``mean_err``, ``median_err``, ``max_err`` (absolute) and
@@ -84,10 +83,6 @@ def run(size: int, box_version: int = 4, iters: int = 10, seed: int = 0,
         if backend not in BACKENDS:
             raise ValueError(f"unknown IoU backend {backend!r}; "
                              f"choose from {BACKENDS}")
-        if backend not in AVAILABLE_BACKENDS:
-            raise NotImplementedError(
-                f"IoU backend {backend!r} is not available in this package "
-                f"yet; choose from {list(AVAILABLE_BACKENDS)}")
     if size < 1 or iters < 1:
         raise ValueError("--size and --iters must be at least 1")
     device = resolve_device(device)

@@ -117,3 +117,48 @@ class SphAnchorGenerator:
     def flat_anchors(self, featmap_sizes, device=None) -> torch.Tensor:
         """All levels concatenated: (sum_l H_l*W_l*A, box_version)."""
         return torch.cat(self.grid_anchors(featmap_sizes, device), dim=0)
+
+
+def kent_grid_anchors(generator: SphAnchorGenerator, featmap_sizes,
+                      device=None) -> list:
+    """Per-level grid anchors as canonical Kent parameters (pixel ->
+    spherical -> Kent). Detectors always consume spherical anchors; these
+    are an explicit precomputation for Kent assignment and loss paths."""
+    from ..iou.kent import deg2kent
+
+    return [deg2kent(a) for a in generator.grid_anchors(featmap_sizes, device)]
+
+
+@dataclasses.dataclass(frozen=True)
+class SphSSDAnchorGenerator(SphAnchorGenerator):
+    """SSD-style anchors: per-level min/max sizes and a ratio set. The base
+    anchors of a level are (min_size, sqrt(min * max)) at ratio 1 plus
+    min_size at each extra ratio and its inverse."""
+
+    min_sizes: Sequence[float] = ()
+    max_sizes: Sequence[float] = ()
+    level_ratios: Sequence[Sequence[float]] = ()
+
+    @property
+    def num_base_anchors(self):  # varies by level
+        raise AttributeError("use num_base_anchors_per_level")
+
+    @property
+    def num_base_anchors_per_level(self):
+        return [2 + 2 * len(r) for r in self.level_ratios]
+
+    def base_anchors(self, level: int) -> np.ndarray:
+        mn, mx = self.min_sizes[level], self.max_sizes[level]
+        ws = [mn, math.sqrt(mn * mx)]
+        hs = [mn, math.sqrt(mn * mx)]
+        for r in self.level_ratios[level]:
+            sr = math.sqrt(r)
+            ws += [mn * sr, mn / sr]
+            hs += [mn / sr, mn * sr]
+        ws = np.asarray(ws, np.float32)
+        hs = np.asarray(hs, np.float32)
+        cx = cy = self.center_offset * self.strides[level]
+        return np.stack(
+            [cx - 0.5 * ws, cy - 0.5 * hs, cx + 0.5 * ws, cy + 0.5 * hs],
+            axis=-1,
+        ).astype(np.float32)

@@ -82,3 +82,51 @@ class SphBBoxCoder:
             hi.append(90.0 - _EPS)
         return (torch.tensor(lo, dtype=torch.float32, device=device),
                 torch.tensor(hi, dtype=torch.float32, device=device))
+
+
+@dataclasses.dataclass(frozen=True)
+class DistancePointSphBBoxCoder:
+    """FCOS-style coder: spherical box <-> (l, t, r, b) pixel distances.
+
+    Boxes are converted to pixel-plane xyxy in a fixed ERP chart, distances
+    are measured there, and ``decode`` maps back to spherical degrees,
+    clamped to the open coordinate ranges.
+    """
+
+    img_size: tuple = (512, 1024)  # (H, W) chart
+    box_version: int = 4
+
+    def _scale(self):
+        img_h, img_w = self.img_size
+        return img_w / 360.0, img_h / 180.0
+
+    def encode(self, points: torch.Tensor, gt: torch.Tensor, max_dis=None,
+               eps=0.1) -> torch.Tensor:
+        """points: (..., 2) pixel centres; gt: (..., 4) spherical degrees."""
+        sx, sy = self._scale()
+        cx, cy = gt[..., 0] * sx, gt[..., 1] * sy
+        w, h = gt[..., 2] * sx, gt[..., 3] * sy
+        left = points[..., 0] - (cx - w / 2)
+        top = points[..., 1] - (cy - h / 2)
+        right = (cx + w / 2) - points[..., 0]
+        bottom = (cy + h / 2) - points[..., 1]
+        d = torch.stack([left, top, right, bottom], dim=-1)
+        if max_dis is not None:
+            d = d.clamp(0.0, max_dis - eps)
+        return d
+
+    def decode(self, points: torch.Tensor,
+               distances: torch.Tensor) -> torch.Tensor:
+        sx, sy = self._scale()
+        x1 = points[..., 0] - distances[..., 0]
+        y1 = points[..., 1] - distances[..., 1]
+        x2 = points[..., 0] + distances[..., 2]
+        y2 = points[..., 1] + distances[..., 3]
+        theta = (x1 + x2) / 2.0 / sx
+        phi = (y1 + y2) / 2.0 / sy
+        alpha = (x2 - x1) / sx
+        beta = (y2 - y1) / sy
+        return torch.stack([theta.clamp(_EPS, 360.0 - _EPS),
+                            phi.clamp(_EPS, 180.0 - _EPS),
+                            alpha.clamp(_EPS, 180.0 - _EPS),
+                            beta.clamp(_EPS, 180.0 - _EPS)], dim=-1)

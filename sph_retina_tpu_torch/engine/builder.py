@@ -26,21 +26,6 @@ def parse_test_nms_cfg(cfg: dict) -> dict:
     )
 
 
-def _loss_or_refusal(loss_cfg: dict):
-    """The regression loss of a config. A loss type that is not available
-    yet must not stop a detector from being built for inference, which needs
-    no loss: the callable returned for it raises, by name, when called."""
-    try:
-        return build_loss(loss_cfg)
-    except NotImplementedError as err:
-        message = str(err)
-
-        def refuse(*args, **kwargs):
-            raise NotImplementedError(message)
-
-        return refuse
-
-
 def build_detector_config(cfg: dict) -> DetectorConfig:
     m = cfg["model"]
     train_cfg = cfg.get("train_cfg", {})
@@ -73,7 +58,7 @@ def build_detector_config(cfg: dict) -> DetectorConfig:
             neg_iou_thr=assigner_cfg.get("neg_iou_thr", 0.4),
             min_pos_iou=assigner_cfg.get("min_pos_iou", 0.0),
         ),
-        loss_bbox=_loss_or_refusal(loss_bbox_cfg),
+        loss_bbox=build_loss(loss_bbox_cfg),
         reg_decoded_bbox=m.get("reg_decoded_bbox", False),
         loss_pos_topk=m.get("loss_pos_topk", 1024),
         assign_backend=assign_backend,

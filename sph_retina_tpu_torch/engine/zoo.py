@@ -3,9 +3,9 @@
 A family adapter exposes ``build(cfg_dict) -> (module, detector config)``,
 ``loss_fn(model, cfg) -> f(batch, generator) -> (total, dict)`` and
 ``predict_fn(model, cfg) -> f(images) -> NMSResult``;
-``make_generic_train_step`` serves every family. Only the RetinaNet family is
-available in this package so far; the others raise ``NotImplementedError``
-by name.
+``make_generic_train_step`` serves every family. The single-stage families
+(RetinaNet, FCOS, SSD) are available; Faster R-CNN raises
+``NotImplementedError`` by name.
 """
 
 from __future__ import annotations
@@ -13,8 +13,42 @@ from __future__ import annotations
 import torch
 
 from ..data.pipeline import maybe_normalize_images
+from ..models.fcos import SphFCOS, fcos_config, fcos_loss, fcos_predict
 from ..models.single_stage import retina_loss, retina_predict
+from ..models.ssd import SphSSD, ssd_config, ssd_loss, ssd_predict
 from .train import SGDOptimizer, run_step, total_loss
+
+
+def _common(cfg_dict):
+    m = cfg_dict["model"]
+    bb = m.get("backbone", {})
+    return dict(
+        num_classes=m["num_classes"],
+        box_version=m.get("box_version", 4),
+        img_size=tuple(cfg_dict.get("img_size", (512, 1024))),
+        dtype=torch.bfloat16 if cfg_dict.get("bf16", True) else torch.float32,
+        backbone=dict(depth=bb.get("depth", 50), groups=bb.get("groups", 1),
+                      base_width=bb.get("base_width", 64)),
+    )
+
+
+def _reg_loss_kwargs(cfg_dict, *, decoded_flag=True):
+    """``model.loss_bbox`` / ``model.reg_decoded_bbox`` -> family-config
+    kwargs: the config keys RetinaNet's builder reads, so that every family
+    shares one loss axis."""
+    from ..losses import build_loss
+
+    m = cfg_dict["model"]
+    kw = {}
+    if m.get("loss_bbox"):
+        kw["loss_bbox"] = build_loss(m["loss_bbox"])
+    if decoded_flag and "reg_decoded_bbox" in m:
+        kw["reg_decoded_bbox"] = bool(m["reg_decoded_bbox"])
+    return kw
+
+
+def _device_of(model):
+    return next(model.parameters()).device
 
 
 class RetinaNetFamily:
@@ -28,7 +62,7 @@ class RetinaNetFamily:
 
     @staticmethod
     def loss_fn(model, cfg):
-        anchors = cfg.flat_anchors(next(model.parameters()).device)
+        anchors = cfg.flat_anchors(_device_of(model))
 
         def f(batch, generator=None):
             del generator  # drawn from by families that sample (none yet)
@@ -41,7 +75,7 @@ class RetinaNetFamily:
 
     @staticmethod
     def predict_fn(model, cfg):
-        device = next(model.parameters()).device
+        device = _device_of(model)
         level_anchors = cfg.anchor_generator.grid_anchors(
             cfg.featmap_sizes(), device)
 
@@ -54,12 +88,100 @@ class RetinaNetFamily:
         return f
 
 
+class FCOSFamily:
+    name = "SphFCOS"
+
+    @staticmethod
+    def build(cfg_dict):
+        c = _common(cfg_dict)
+        model = SphFCOS(num_classes=c["num_classes"],
+                        box_version=c["box_version"], dtype=c["dtype"],
+                        **c["backbone"])
+        # the FCOS config has no reg_decoded_bbox: its loss always sees
+        # decoded boxes; like the JAX package, it reads no test_cfg
+        return model, fcos_config(c["num_classes"], img_size=c["img_size"],
+                                  box_version=c["box_version"],
+                                  **_reg_loss_kwargs(cfg_dict,
+                                                     decoded_flag=False))
+
+    @staticmethod
+    def loss_fn(model, cfg):
+        level_points = cfg.level_points(_device_of(model))
+
+        def f(batch, generator=None):
+            del generator
+            cls, reg, ctr = model(batch["images"])
+            losses = fcos_loss(cfg, cls, reg, ctr, batch["gt_boxes"],
+                               batch["gt_labels"], batch["gt_mask"],
+                               level_points)
+            return total_loss(losses), losses
+
+        return f
+
+    @staticmethod
+    def predict_fn(model, cfg):
+        device = _device_of(model)
+        level_points = cfg.level_points(device)
+
+        @torch.no_grad()
+        def f(images):
+            images = maybe_normalize_images(images.to(device))
+            cls, reg, ctr = model(images)
+            return fcos_predict(cfg, cls, reg, ctr, level_points)
+
+        return f
+
+
+class SSDFamily:
+    name = "SphSSD"
+
+    @staticmethod
+    def build(cfg_dict):
+        c = _common(cfg_dict)
+        model = SphSSD(num_classes=c["num_classes"],
+                       box_version=c["box_version"], dtype=c["dtype"])
+        # like the JAX package, the SSD config reads neither train_cfg (its
+        # assigner and backend are fixed) nor test_cfg
+        return model, ssd_config(c["num_classes"], img_size=c["img_size"],
+                                 box_version=c["box_version"],
+                                 **_reg_loss_kwargs(cfg_dict))
+
+    @staticmethod
+    def loss_fn(model, cfg):
+        anchors = cfg.flat_anchors(_device_of(model))
+
+        def f(batch, generator=None):
+            del generator
+            cls, reg = model(batch["images"])
+            losses = ssd_loss(cfg, cls, reg, anchors, batch["gt_boxes"],
+                              batch["gt_labels"], batch["gt_mask"])
+            return total_loss(losses), losses
+
+        return f
+
+    @staticmethod
+    def predict_fn(model, cfg):
+        device = _device_of(model)
+        level_anchors = cfg.level_anchors(device)
+
+        @torch.no_grad()
+        def f(images):
+            images = maybe_normalize_images(images.to(device))
+            cls, reg = model(images)
+            return ssd_predict(cfg, cls, reg, level_anchors)
+
+        return f
+
+
 FAMILIES = {
     "SphRetinaNet": RetinaNetFamily,
     "RetinaNet": RetinaNetFamily,
+    "SphFCOS": FCOSFamily,
+    "FCOS": FCOSFamily,
+    "SphSSD": SSDFamily,
+    "SSD": SSDFamily,
 }
-_NOT_PORTED = ("SphFCOS", "FCOS", "SphSSD", "SSD", "SphFasterRCNN",
-               "FasterRCNN")
+_NOT_PORTED = ("SphFasterRCNN", "FasterRCNN")
 
 
 def get_family(cfg_dict):

@@ -6,9 +6,9 @@
 - plain differentiable PyTorch on whatever device the boxes lie on.
 
 Backends: ``sph2pob_efficient``, ``sph2pob_standard``, ``sph2pob_legacy``,
-``unbiased`` (the exact oracle), ``sph`` / ``fov`` (planar approximations)
-and ``naive`` (chart IoU). ``kent`` (the Kent-distribution surrogate) is not
-part of this package yet and raises ``NotImplementedError`` by name.
+``unbiased`` (the exact oracle), ``sph`` / ``fov`` (planar approximations),
+``naive`` (chart IoU) and ``kent`` (the Kent-distribution KLD surrogate,
+``iou/kent.py``).
 
 The configs spell backends either by their short name or by the ``*_iou``
 function names of the original Sph2Pob code base; every dispatch point
@@ -31,6 +31,7 @@ from ..geometry.boxes import standardize_spherical_box
 from ..geometry.jitter import jitter_rotated_boxes, jitter_spherical_boxes
 from ..geometry.sph2pob import TRANSFORMS, sph2pob_legacy
 from .approx import fov_iou_aligned, sph_iou_aligned
+from .kent import deg2kent, kent_iou_elementwise, kent_iou_from_params
 from .rotated import rotated_box_iou
 from .unbiased import unbiased_iou as _unbiased_elementwise
 
@@ -82,12 +83,6 @@ def _naive_deg(boxes1, boxes2):
     return rotated_box_iou(sph2planar_boxes(boxes1), sph2planar_boxes(boxes2))
 
 
-def _kent_deg(boxes1, boxes2):
-    raise NotImplementedError(
-        "IoU backend 'kent' (the Kent-distribution surrogate) is not "
-        "available in this package yet")
-
-
 _BACKENDS = {
     "sph2pob_standard": partial(_sph2pob_iou_elementwise,
                                 variant="sph2pob_standard"),
@@ -99,7 +94,7 @@ _BACKENDS = {
     "sph": partial(_chart_deg, sph_iou_aligned),
     "fov": partial(_chart_deg, fov_iou_aligned),
     "naive": _naive_deg,
-    "kent": _kent_deg,
+    "kent": kent_iou_elementwise,
 }
 
 _ALIASES = {
@@ -115,7 +110,7 @@ _ALIASES = {
 }
 
 BACKENDS = tuple(sorted(set(_BACKENDS) | set(_ALIASES)))
-AVAILABLE_BACKENDS = tuple(b for b in _BACKENDS if b != "kent")
+AVAILABLE_BACKENDS = tuple(_BACKENDS)  # the canonical names
 
 
 def canonical_backend(name: str) -> str:
@@ -145,7 +140,13 @@ def sph_overlaps(boxes1: torch.Tensor, boxes2: torch.Tensor,
     fn = _BACKENDS[name]
     boxes1 = torch.as_tensor(boxes1).float()
     boxes2 = torch.as_tensor(boxes2).float()
-    if is_aligned:
+    if not is_aligned and name == "kent":
+        # Kent is a per-box parameterisation: convert each side once and
+        # broadcast the 5 parameters, instead of running the 121-point
+        # moment estimate per pair ((64, 98208) pairs would take 9 GB)
+        out = kent_iou_from_params(deg2kent(boxes1)[:, None, :],
+                                   deg2kent(boxes2)[None, :, :])
+    elif is_aligned:
         out = fn(boxes1, boxes2, **kwargs)
     else:
         n, m = boxes1.shape[0], boxes2.shape[0]

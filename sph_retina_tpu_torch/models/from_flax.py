@@ -2,13 +2,14 @@
 
 ``from_flax(params, batch_stats)`` takes the nested dicts of numpy arrays
 that ``utils.publish.load_published`` returns — the layout of the Flax
-modules of the JAX package — and returns a flat ``state_dict`` for
-:class:`~sph_retina_tpu_torch.models.single_stage.SphRetinaNet`:
+modules of the JAX package — and returns a flat ``state_dict`` for the
+port's detectors (``SphRetinaNet``, ``SphFCOS``, ``SphSSD``):
 
 - conv ``kernel`` (H, W, I, O) -> ``weight`` (O, I, H, W), grouped convs too
   (both frameworks keep I = in_channels / groups there); ``bias`` as is;
 - batch norm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` ->
-  ``weight``/``bias``/``running_mean``/``running_var``;
+  ``weight``/``bias``/``running_mean``/``running_var``; every other
+  ``scale`` (GroupNorm, SSD's L2Norm, FCOS's per-level scalar) -> ``weight``;
 - Flax paths (``backbone/layer1_0/conv1``) -> module paths
   (``backbone.layer1_0.conv1``); the port's modules carry the same names.
 
@@ -41,7 +42,8 @@ def from_flax(params: dict, batch_stats: dict | None = None) -> dict:
     def put(key, value):
         if key in out:
             raise KeyError(f"duplicate key {key!r} while converting")
-        out[key] = torch.from_numpy(np.ascontiguousarray(value, np.float32))
+        # np.array, not np.ascontiguousarray: that one makes a 0-d leaf 1-d
+        out[key] = torch.from_numpy(np.array(value, np.float32, order="C"))
 
     for path, leaf in _walk(params):
         module, name = ".".join(path[:-1]), path[-1]
@@ -69,7 +71,8 @@ def to_flax(state_dict: dict) -> tuple[dict, dict]:
     """Flat ``state_dict`` (or any dict of tensors under its keys, such as
     gradients by parameter name) -> nested ``(params, batch_stats)`` trees of
     numpy arrays in the Flax layout. 4-d ``weight`` is a conv kernel, 1-d
-    ``weight`` a batch-norm scale."""
+    or 0-d ``weight`` a ``scale`` (of a batch norm, a group norm, an L2Norm,
+    an FCOS level)."""
     params: dict = {}
     batch_stats: dict = {}
     stats_names = {v: k for k, v in _BN_STATS.items()}
@@ -87,7 +90,7 @@ def to_flax(state_dict: dict) -> tuple[dict, dict]:
         elif name == "weight" and value.ndim == 4:
             put(params, module + ["kernel"],
                 np.ascontiguousarray(value.transpose(2, 3, 1, 0)))
-        elif name == "weight" and value.ndim == 1:
+        elif name == "weight" and value.ndim <= 1:
             put(params, module + ["scale"], value)
         elif name == "bias":
             put(params, module + ["bias"], value)

@@ -17,6 +17,7 @@ its working dtype (bf16 by default) once, on entry.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -38,6 +39,25 @@ class Conv2d(nn.Conv2d):
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+@torch.no_grad()
+def seeded_init_(model: nn.Module, generator: torch.Generator) -> None:
+    """Random initialisation from an explicit generator, in parameter order:
+    conv kernels N(0, 1/fan_in), biases 0, every other parameter (norm
+    scales, learned scalars) 1; batch-norm moments at identity. A model
+    sets its own special values (a focal prior, an L2Norm scale) after."""
+    for name, p in model.named_parameters():
+        if p.ndim == 4:
+            fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+            p.copy_(torch.randn(p.shape, generator=generator)
+                    / math.sqrt(fan_in))
+        elif name.endswith("bias"):
+            p.zero_()
+        else:
+            p.fill_(1.0)
+    for name, b in model.named_buffers():
+        b.fill_(1.0 if name.endswith("running_var") else 0.0)
 
 
 class FrozenBatchNorm(nn.Module):

@@ -37,7 +37,7 @@ from ..losses import sigmoid_focal_loss, sph_l1_loss
 from ..ops.sph2pob_iou import sph2pob_iou_pairwise
 from .fpn import FPN
 from .heads.retina_head import SphRetinaHead
-from .resnet import ResNet
+from .resnet import ResNet, seeded_init_
 
 
 class SphRetinaNet(nn.Module):
@@ -67,21 +67,10 @@ class SphRetinaNet(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """Random initialisation from an explicit generator: conv kernels
-        N(0, 1/fan_in), biases 0 except the focal prior of ``retina_cls``,
-        batch norms at identity."""
-        for name, p in self.named_parameters():
-            if p.ndim == 4:
-                fan_in = p.shape[1] * p.shape[2] * p.shape[3]
-                p.copy_(torch.randn(p.shape, generator=generator)
-                        / math.sqrt(fan_in))
-            elif name.endswith("bias"):
-                p.zero_()
-            else:  # batch-norm scale
-                p.fill_(1.0)
+        """Random initialisation from an explicit generator
+        (``seeded_init_``) with the focal prior on ``retina_cls``'s bias."""
+        seeded_init_(self, generator)
         self.bbox_head.retina_cls.bias.fill_(-math.log((1 - 0.01) / 0.01))
-        for name, b in self.named_buffers():
-            b.fill_(1.0 if name.endswith("running_var") else 0.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,7 +153,7 @@ def _batch_pairwise_iou(gt: torch.Tensor, anchors: torch.Tensor, backend: str):
     """(B, G, D) x (N, D) -> (B, G, N): for ``sph2pob_efficient`` one launch
     of the fused pairwise kernel (its plain version on CPU tensors); every
     other backend through ``sph_overlaps``, plain PyTorch on the tensors'
-    device (``kent`` raises by name there)."""
+    device (``kent`` converts each side to Kent parameters once)."""
     b, g, d = gt.shape
     flat = gt.reshape(b * g, d).contiguous()
     if canonical_backend(backend) == "sph2pob_efficient":

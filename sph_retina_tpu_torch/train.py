@@ -30,7 +30,6 @@ from .data import DataLoader, SphPipeline, make_synthetic_dataset, to_device
 from .engine.builder import build_tx
 from .engine.runner import MetricLogger, run_training
 from .engine.zoo import get_family, make_generic_train_step
-from .losses import build_loss
 from .utils.config import apply_overrides, load_config
 from .utils.device import resolve_device
 
@@ -57,8 +56,6 @@ def build_training(cfg: dict, device: torch.device, seed: int = 0):
     """(model, detector config, loader, optimiser, train step) for a config
     dict on the synthetic dataset: what ``main`` runs, for callers that drive
     the steps themselves."""
-    # a loss that is not available yet: say so before anything is built
-    build_loss(cfg["model"].get("loss_bbox", {"type": "SphL1Loss"}))
     family = get_family(cfg)
     model, det_cfg = family.build(cfg)
     model.init_weights(torch.Generator().manual_seed(seed))

@@ -228,8 +228,8 @@ def test_reduce_box_weight_and_build_loss():
     assert tlosses.build_loss({"type": "L1Loss"}).func is tl1.sph_l1_loss
     assert tlosses.build_loss({"type": "FocalLoss", "use_sigmoid": True}
                               ).func is tfocal.sigmoid_focal_loss
-    with pytest.raises(NotImplementedError, match="Sph2PobKLDLoss"):
-        tlosses.build_loss({"type": "Sph2PobKLDLoss", "loss_weight": 1.0})
+    assert tlosses.build_loss({"type": "Sph2PobKLDLoss", "loss_weight": 1.0}
+                              ).func is tlosses.sph2pob_kld_loss
     with pytest.raises(ValueError, match="unknown loss"):
         tlosses.build_loss({"type": "NoSuchLoss"})
 
@@ -301,9 +301,14 @@ def test_anchor_targets_equal_the_jax_packages(version, decoded, monkeypatch):
 
 
 def test_assign_backends_that_wait_raise_by_name():
+    # no backend waits any more: kent assigns (held to the JAX package in
+    # tests/test_torch_kent.py), and a name the package lacks raises by name
+    gt = torch.tensor([[[60.0, 90.0, 40.0, 30.0], [200.0, 80.0, 50.0, 50.0]]])
+    args = (gt, torch.zeros((1, 2), dtype=torch.int32),
+            torch.ones((1, 2), dtype=torch.bool))
     cfg = tss.retina_config(7, img_size=(64, 128), assign_backend="kent_iou")
-    gt = torch.ones((1, 2, 4))
-    with pytest.raises(NotImplementedError, match="kent"):
-        tss.anchor_targets(cfg, cfg.flat_anchors(), gt,
-                           torch.zeros((1, 2), dtype=torch.int32),
-                           torch.ones((1, 2), dtype=torch.bool))
+    got = tss.anchor_targets(cfg, cfg.flat_anchors(), *args)
+    assert int(got.num_pos) >= 2
+    cfg = tss.retina_config(7, img_size=(64, 128), assign_backend="nonsense")
+    with pytest.raises(ValueError, match="nonsense"):
+        tss.anchor_targets(cfg, cfg.flat_anchors(), *args)

@@ -112,12 +112,10 @@ def test_public_wrappers_aliases_and_refusals():
         torch.testing.assert_close(
             tapi.sph_overlaps(b1, b2, f"{name}_iou"),
             tapi.sph_overlaps(b1, b2, name))
-    assert set(tapi.AVAILABLE_BACKENDS) == set(BACKENDS)
+    assert set(tapi.AVAILABLE_BACKENDS) == set(BACKENDS) | {"kent"}
     assert tapi.BACKENDS == japi.BACKENDS
-    with pytest.raises(NotImplementedError, match="kent"):
-        tapi.kent_iou(b1, b2)
-    with pytest.raises(NotImplementedError, match="kent"):
-        tapi.sph_overlaps(b1, b2, "kent_iou", is_aligned=False)
+    torch.testing.assert_close(tapi.kent_iou(b1, b2),
+                               tapi.sph_overlaps(b1, b2, "kent_iou"))
     with pytest.raises(ValueError, match="unknown IoU backend"):
         tapi.sph_overlaps(b1, b2, "nonsense")
     assert tuple(tapi.sph_overlaps(torch.zeros((0, 4)), b2).shape) == (0, 8)
@@ -179,6 +177,6 @@ def test_iou_tool_prints_the_backend_rows_with_their_errors(capsys):
     # the Sph2Pob IoU follows the oracle closely, the chart IoUs less so
     assert rows["sph2pob_efficient"]["pearson_r"] > 0.99
     assert rows["sph2pob_efficient"]["mean_err"] < rows["naive"]["mean_err"]
-    with pytest.raises(NotImplementedError, match="kent"):
+    with pytest.raises(ValueError, match="unknown IoU backend"):
         benchmark_iou.main(["--device", "cpu", "--size", "10",
-                            "--backends", "kent"])
+                            "--backends", "kents"])

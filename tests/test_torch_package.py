@@ -115,8 +115,9 @@ def test_a_config_whose_loss_is_not_available_still_builds_for_inference():
         REPO, "configs", "sph_kent_retinanet_kld_120e_indoor360.py"))
     det = build_detector_config(cfg)
     assert det.reg_decoded_bbox and det.num_classes == 37
-    with pytest.raises(NotImplementedError, match="KentLoss"):
-        det.loss_bbox(torch.zeros((2, 4)), torch.zeros((2, 4)))
+    # KentLoss is available now: the built loss gives a finite value
+    boxes = torch.tensor([[90.0, 90.0, 30.0, 40.0], [200.0, 60.0, 50.0, 20.0]])
+    assert torch.isfinite(det.loss_bbox(boxes, boxes + 1.0))
 
 
 def test_load_published_equals_the_jax_packages(tmp_path):

@@ -426,7 +426,7 @@ def test_trainer_cli_writes_finite_metrics(tmp_path, monkeypatch, capsys):
      "--launcher"),
     ([CONFIG, "--device", "cpu"], "--synthetic"),
     ([CONFIG, "--synthetic", "--device", "cpu", "--cfg-options",
-      "model.loss_bbox={'type':'Sph2PobKLDLoss'}"], "Sph2PobKLDLoss"),
+      "model.type=SphFasterRCNN"], "SphFasterRCNN"),
 ], ids=["resume", "load_backbone", "launcher", "annotation_file",
         "iou_loss_of_the_config"])
 def test_trainer_cli_refuses_by_name(argv, match, tmp_path):
