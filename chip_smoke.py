@@ -15,9 +15,11 @@ decoded-box Sph2Pob-CIoU loss) the trainer again; on the shipped PANDORA
 RetinaNet config (R50, 4-dof boxes, ``unbiased_iou`` NMS) one request through
 the server; the trainer on the shipped SSD-VGG16, Kent-KLD, 5-dof Kent and
 FCOS-R50 configs and one ``inference_detector`` request each to the FCOS, SSD
-and Kent-KLD configs; and the IoU tool (``benchmark_iou.main``, the kernel
-and the other backends) — and holds every CUDA kernel of those paths against
-its plain PyTorch version on the card.
+and Kent-KLD configs; the trainer on three Faster R-CNN configs (R50
+indoor360 with the random and the OHEM RoI sampler, R18 Sphere-bench) and
+one request to the soft-NMS one; and the IoU tool (``benchmark_iou.main``,
+the kernel and the other backends) — and holds every CUDA kernel of those
+paths against its plain PyTorch version on the card.
 
 Phases, each printing one JSON line; any failure ends the run non-zero:
 
@@ -61,7 +63,15 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             step time, ``loss_centerness``, memory, device share
 12. serve_families  one ``inference_detector`` request each to the FCOS,
             SSD and Kent-KLD configs: non-empty, well-formed results
-13. the kernels' summary line, then the last line
+13. train_frcnn  ``train.main`` on the Faster R-CNN R50 indoor360 config:
+            one launch of the pairwise kernel a step at (256, 130944) D=4
+            and four at the RoI sampler's (64, 576), bitwise equal to the
+            plain version on the last step's inputs at both; a fixed batch
+            (step time, memory, device share, the RPN NMS's sweeps); one
+            step of the OHEM leaf, two of the R18 Sphere-bench leaf; one
+            request to the soft-NMS leaf (scores decayed, boxes kept that
+            hard NMS removes)
+14. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
 Weights are random, made from ``--seed``; no number printed here says
@@ -106,7 +116,7 @@ from sph_retina_tpu_torch.losses import (
     sph_kent_loss,
     sph_l1_loss,
 )
-from sph_retina_tpu_torch.models import single_stage
+from sph_retina_tpu_torch.models import faster_rcnn, single_stage
 from sph_retina_tpu_torch.ops import _build, fused_iou
 from sph_retina_tpu_torch.ops.fused_iou import (
     sph2pob_disjoint_plain,
@@ -137,6 +147,14 @@ KENT_L1_CONFIG = os.path.join(ROOT, "configs",
                               "sph_kent_retinanet_r50_fpn_120e_indoor360.py")
 FCOS_CONFIG = os.path.join(ROOT, "configs",
                            "sph_fcos_r50_fpn_120e_indoor360.py")
+FRCNN_CONFIG = os.path.join(ROOT, "configs",
+                            "sph_faster_rcnn_r50_fpn_120e_indoor360.py")
+FRCNN_OHEM_CONFIG = os.path.join(
+    ROOT, "configs", "sph_faster_rcnn_r50_fpn_ohem_120e_indoor360.py")
+FRCNN_SOFT_CONFIG = os.path.join(
+    ROOT, "configs", "sph_faster_rcnn_r50_fpn_soft_nms_120e_indoor360.py")
+FRCNN_R18_CONFIG = os.path.join(
+    ROOT, "configs", "sph_faster_rcnn_r18_fpn_24e_spherebench.py")
 TOLERANCE = 1e-4  # the JAX suite's own tolerance for its Pallas kernels
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory rate
 # and the fp32 rate outside the tensor cores.
@@ -159,6 +177,10 @@ KENT_TRAIN_STEPS = 3     # the Kent-KLD config, batch 1
 KENT_L1_STEPS = 2        # the Kent config with delta-L1, 5-dof, batch 1
 FCOS_TRAIN_STEPS = 3
 FCOS_TRAIN_BATCH = 4
+FRCNN_TRAIN_STEPS = 3    # the indoor360 R50 leaf through train.main
+FRCNN_FIXED_STEPS = 6    # then on a fixed batch
+FRCNN_TRAIN_BATCH = 4
+FRCNN_R18_STEPS = 2      # the Sphere-bench R18 leaf, batch 8
 
 
 def emit(obj: dict) -> None:
@@ -248,6 +270,16 @@ ASSIGN_SHAPE = (256, 98208, 5)        # batch 4 x max_gt 64 against the anchors
 IOU_ASSIGN_SHAPE = (192, 24552, 4)    # Sphere-bench: batch 8 x max_gt 24
 SSD_ASSIGN_SHAPE = (256, 49056, 4)    # SSD-VGG16: batch 4 x max_gt 64
 KENT_ASSIGN_PAIRS = (64, 98208)       # Kent-KLD: batch 1 x max_gt 64
+# Faster R-CNN indoor360: the RPN's batch 4 x max_gt 64 against the 130,944
+# anchors of strides 4-64, and the RoI sampler's max_gt x (512 proposals +
+# 64 gts), one launch a image; the R18 Sphere-bench leaf: batch 8 x max_gt 24
+# against 32,736 anchors, and 24 x (512 + 24)
+FRCNN_RPN_SHAPE = (256, 130944, 4)
+FRCNN_ROI_SHAPE = (64, 576, 4)
+FRCNN_R18_RPN_SHAPE = (192, 32736, 4)
+FRCNN_R18_ROI_SHAPE = (24, 536, 4)
+FRCNN_LEAF = (50, 37, (512, 1024))         # depth, classes, img_size
+FRCNN_R18_LEAF = (18, 12, (256, 512))
 TOOL_SHAPE = (1_000_000, 4)           # the IoU tool's default
 KERNELS = (
     Kernel(
@@ -285,16 +317,17 @@ KERNELS = (
 
 
 def seeded_state_dict(model: torch.nn.Module, seed: int) -> dict:
-    """Weights made with numpy from a seed: He-normal conv kernels, batch
-    norms at identity except the last one of each residual block (scale 0.3,
-    so that activations do not grow 2x a block), biases 0 — the focal prior
-    of ``retina_cls`` included, or no score would pass ``score_thr``."""
+    """Weights made with numpy from a seed: He-normal conv and dense
+    kernels, batch norms at identity except the last one of each residual
+    block (scale 0.3, so that activations do not grow 2x a block), biases 0
+    — the focal prior of ``retina_cls`` included, or no score would pass
+    ``score_thr``."""
     rng = np.random.default_rng(seed)
     state = {}
     for key, ref in model.state_dict().items():
         shape = tuple(ref.shape)
-        if len(shape) == 4:
-            fan_in = shape[1] * shape[2] * shape[3]
+        if len(shape) in (2, 4):  # conv and dense kernels
+            fan_in = math.prod(shape[1:])
             value = rng.standard_normal(shape, dtype=np.float32) \
                 * math.sqrt(2.0 / fan_in)
         elif key.endswith("running_var"):
@@ -1033,11 +1066,11 @@ def drive_trainer(config: str, steps: int, batch: int, seed: int) -> dict:
     """``train.main`` as a user starts it, one epoch of ``steps`` steps,
     logging every step. The pairwise kernel's launch counter is set to 0
     just before and read just after; its calls are recorded (shapes, and
-    the last call's inputs). Returns the config, what ``build_training``
-    built, the per-step log records, the kernel's launches and calls, and
-    the trainer's wall time."""
+    the inputs of the last call of each shape). Returns the config, what
+    ``build_training`` built, the per-step log records, the kernel's
+    launches and calls, and the trainer's wall time."""
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    built, calls, last = {}, [], []
+    built, calls, last_inputs = {}, [], {}
     build_training = train_cli.build_training
 
     def capturing(cfg, dev, seed=0):
@@ -1045,11 +1078,13 @@ def drive_trainer(config: str, steps: int, batch: int, seed: int) -> dict:
         return built["parts"]
 
     def recording(boxes1, boxes2):
-        last[:] = [(boxes1.clone(), boxes2.clone())]
+        last_inputs[(boxes1.shape[0], boxes2.shape[0])] = (boxes1.clone(),
+                                                           boxes2.clone())
         return _recording(sph2pob_iou_pairwise, calls)(boxes1, boxes2)
 
     train_cli.build_training = capturing
     single_stage.sph2pob_iou_pairwise = recording
+    faster_rcnn.sph2pob_iou_pairwise = recording
     said = io.StringIO()
     try:
         with tempfile.TemporaryDirectory(
@@ -1070,6 +1105,7 @@ def drive_trainer(config: str, steps: int, batch: int, seed: int) -> dict:
     finally:
         train_cli.build_training = build_training
         single_stage.sph2pob_iou_pairwise = sph2pob_iou_pairwise
+        faster_rcnn.sph2pob_iou_pairwise = sph2pob_iou_pairwise
     if rc != 0 or "training done" not in said.getvalue():
         raise AssertionError(f"the trainer said {said.getvalue()!r}")
     logged = [r for r in records if r["prefix"] == "train"]
@@ -1081,7 +1117,7 @@ def drive_trainer(config: str, steps: int, batch: int, seed: int) -> dict:
             raise AssertionError(f"a loss is not finite: {r}")
     return {"cfg": built["cfg"], "parts": built["parts"], "steps": logged,
             "launches": launches, "calls": calls,
-            "last_input": last[0] if last else None, "seconds": seconds}
+            "last_inputs": last_inputs, "seconds": seconds}
 
 
 def phase_train(seed: int, reps: int) -> tuple[int, dict]:
@@ -1257,7 +1293,7 @@ def phase_train_iou_loss(seed: int, reps: int) -> tuple[int, dict]:
     for r in steps:
         if not r["loss_bbox"] > 0.0:
             raise AssertionError(f"loss_bbox is not positive: {r}")
-    gt_flat, anchors = run["last_input"]
+    gt_flat, anchors = run["last_inputs"][IOU_ASSIGN_SHAPE[:2]]
     on_input = {"input": "train_iou_loss: gt_boxes of the trainer's last "
                          "step x the anchors",
                 **check_kernel(KERNELS[0], gt_flat, anchors, reps,
@@ -1488,7 +1524,8 @@ def trainer_summary(run) -> dict:
                                for r in steps],
             "trainer_step_ms_logged_every_step": statistics.median(
                 (b["time"] - a["time"]) * 1e3
-                for a, b in zip(steps, steps[1:]))}
+                for a, b in zip(steps, steps[1:])) if len(steps) > 1
+            else None}
 
 
 def phase_train_ssd(seed: int, reps: int) -> tuple[int, dict]:
@@ -1511,7 +1548,7 @@ def phase_train_ssd(seed: int, reps: int) -> tuple[int, dict]:
     want_call = [list(SSD_ASSIGN_SHAPE[::2]), list(SSD_ASSIGN_SHAPE[1:])]
     if any(c != want_call for c in calls) or len(calls) != SSD_TRAIN_STEPS:
         raise AssertionError(f"the kernel was called at {calls}")
-    gt_flat, anchors = run["last_input"]
+    gt_flat, anchors = run["last_inputs"][SSD_ASSIGN_SHAPE[:2]]
     on_input = {"input": "train_ssd: gt_boxes of the trainer's last step x "
                          "the SSD anchors",
                 **check_kernel(KERNELS[0], gt_flat, anchors, reps,
@@ -1699,10 +1736,276 @@ def phase_serve_families(seed: int) -> None:
         rows.append({"config": os.path.relpath(config, ROOT),
                      "family": family, "nms_backend": det.det_cfg.nms_backend,
                      "detections": n_det, "request_ms": ms,
+            "head_std_before_calibration": before,
                      "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                      "head_std_before_calibration": before})
         del det
     emit({"phase": "serve_families", "requests": rows})
+
+
+# --------------------------------------------------------------------------- #
+# Faster R-CNN
+# --------------------------------------------------------------------------- #
+def assert_full_width_frcnn(cfg, model, det_cfg, leaf: tuple, rpn_shape,
+                            roi_shape, sampler: str, loss_mode: str) -> None:
+    """A shipped Faster R-CNN config, nothing narrowed: ``leaf`` is its
+    (depth, classes, img_size); the batch, max_gt and anchors are those of
+    the kernel's two inputs; 512 proposals and 256 rois a image; the
+    decoded-box Sph2Pob IoU loss of ``loss_mode``; bf16 on the card."""
+    max_gt = roi_shape[0]
+    got = (cfg["model"]["type"], cfg["model"]["backbone"]["depth"],
+           det_cfg.num_classes, det_cfg.img_size, det_cfg.box_version,
+           cfg["bf16"], cfg["data"]["samples_per_gpu"], cfg["data"]["max_gt"],
+           det_cfg.num_proposals, det_cfg.num_rois, det_cfg.sampler_type,
+           det_cfg.assign_backend, det_cfg.reg_decoded_bbox,
+           *_loss_of(det_cfg), tuple(det_cfg.flat_anchors().shape))
+    want = ("SphFasterRCNN", *leaf, 4, True, rpn_shape[0] // max_gt, max_gt,
+            roi_shape[1] - max_gt, 256, sampler, "sph2pob_efficient", True,
+            sph2pob_iou_loss, {"mode": loss_mode, "loss_weight": 1.0},
+            (rpn_shape[1], 4))
+    if got != want:
+        raise AssertionError(f"not the full-width Faster R-CNN config: {got}")
+    _on_card_in_bf16(model, "Faster R-CNN")
+
+
+def frcnn_calls_ok(run, steps: int, rpn_shape, roi_shape, batch: int) -> None:
+    """One launch a step at the RPN's input, then one a image at the RoI
+    sampler's."""
+    step = [[list(rpn_shape[::2]), list(rpn_shape[1:])]] + \
+        [[list(roi_shape[::2]), list(roi_shape[1:])]] * batch
+    if run["calls"] != step * steps or run["launches"] != len(step) * steps:
+        raise AssertionError(
+            f"{run['launches']} launches of the pairwise kernel over {steps} "
+            f"steps, at {run['calls'][:len(step) + 1]}...: {len(step)} a step "
+            "expected")
+
+
+def greedy_sweeps(iou: torch.Tensor, valid: torch.Tensor, thr: float) -> int:
+    """How many sweeps ``boxes/nms.py:_greedy_suppress`` makes on these
+    inputs (each ends in one host-device synchronisation): the same
+    iteration, counted."""
+    dom = (iou > thr).triu(diagonal=1)
+    keep, sweeps = valid, 0
+    for _ in range(iou.shape[0] + 1):
+        new = valid & ~(dom & keep[:, None]).any(dim=0)
+        sweeps += 1
+        if torch.equal(new, keep):
+            break
+        keep = new
+    return sweeps
+
+
+def rpn_nms_sweeps(step, batch) -> list:
+    """The sweep count of each RPN NMS of one step (one a image)."""
+    inputs = []
+    suppress = nms_module._greedy_suppress
+
+    def recording(iou, valid, thr):
+        inputs.append((iou.clone(), valid.clone(), thr))
+        return suppress(iou, valid, thr)
+
+    nms_module._greedy_suppress = recording
+    try:
+        step(batch)
+    finally:
+        nms_module._greedy_suppress = suppress
+    return [{"k": iou.shape[0], "valid": int(valid.sum()),
+             "sweeps": greedy_sweeps(iou, valid, thr)}
+            for iou, valid, thr in inputs]
+
+
+@torch.no_grad()
+def calibrate_frcnn_head(det, image: np.ndarray, cls_std=2.0,
+                         reg_std=0.3, n_pass=60) -> dict:
+    """``calibrate_head`` for Faster R-CNN: rescale the RPN's two output
+    convs and the RoI head's two output layers so that, on a seeded image,
+    the logits have standard deviation ``cls_std`` and the deltas
+    ``reg_std`` (random weights otherwise put every box on the coder's
+    clamps and every class score below ``score_thr``)."""
+    model, cfg = det.model, det.det_cfg
+    x = maybe_normalize_images(torch.from_numpy(image[None]).to(det.device))
+    (rpn_cls, rpn_reg), feats = model(x)
+    before = {"rpn_cls_std": float(torch.cat(rpn_cls, 1).std()),
+              "rpn_reg_std": float(torch.cat(rpn_reg, 1).std())}
+    model.rpn_head.rpn_cls.weight.mul_(cls_std / before["rpn_cls_std"])
+    model.rpn_head.rpn_reg.weight.mul_(reg_std / before["rpn_reg_std"])
+    (rpn_cls, rpn_reg), feats = model(x)
+    props, _, _ = faster_rcnn.rpn_proposals(cfg, rpn_cls, rpn_reg)
+    logits, deltas = model.roi(
+        faster_rcnn.roi_features(cfg, feats, props).flatten(0, 1))
+    before.update(cls_std=float(logits.std()), reg_std=float(deltas.std()))
+    model.bbox_head.fc_cls.weight.mul_(cls_std / before["cls_std"])
+    model.bbox_head.fc_reg.weight.mul_(reg_std / before["reg_std"])
+    # the background logit raised until about ``n_pass`` (proposal, class)
+    # pairs pass score_thr: fewer than max_per_img, so that the boxes
+    # soft-NMS decays (and hard NMS removes) reach the output
+    logits = logits * (cls_std / before["cls_std"])
+    lo, hi = 0.0, 20.0
+    for _ in range(30):
+        mid = (lo + hi) / 2
+        shifted = logits.clone()
+        shifted[:, -1] += mid
+        n = int((torch.softmax(shifted, -1)[:, :-1] > cfg.score_thr).sum())
+        lo, hi = (mid, hi) if n > n_pass else (lo, mid)
+    model.bbox_head.fc_cls.bias[-1] += hi
+    before["background_bias"] = hi
+    return before
+
+
+def serve_soft_nms(seed: int) -> dict:
+    """One ``inference_detector`` request (after one warm-up call) to the
+    soft-NMS leaf at full width, seeded weights, the heads calibrated
+    (``calibrate_frcnn_head``): records come back, and the soft-NMS call's
+    own output shows scores decayed below the raw ones and boxes kept that
+    hard NMS, on the same inputs, removes."""
+    det = init_detector(FRCNN_SOFT_CONFIG, seed=seed)
+    det.model.load_state_dict(seeded_state_dict(det.model, seed))
+    det.model.to(det.device)
+    assert_full_width_served(det, "SphFasterRCNN")
+    if (det.det_cfg.nms_type, det.det_cfg.soft_method) != ("soft_nms",
+                                                           "linear"):
+        raise AssertionError(f"not the soft-NMS config: {det.det_cfg}")
+    h, w = det.cfg["img_size"]
+    image = np.random.default_rng(seed + 3).integers(0, 256, (h, w, 3),
+                                                     dtype=np.uint8)
+    before = calibrate_frcnn_head(det, image)
+    inference_detector(det, image)
+    calls = []
+    soft = faster_rcnn.sph_batched_soft_nms
+
+    def recording(boxes, scores, idxs, **kw):
+        res = soft(boxes, scores, idxs, **kw)
+        calls.append((boxes, scores, idxs, kw, res))
+        return res
+
+    faster_rcnn.sph_batched_soft_nms = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = inference_detector(det, image)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        faster_rcnn.sph_batched_soft_nms = soft
+    n_det = sum(len(a) for a in result)
+    if len(result) != det.num_classes or n_det == 0 or len(calls) != 1:
+        raise AssertionError(f"soft-NMS request: {n_det} detections, "
+                             f"{len(calls)} soft-NMS calls")
+    for a in result:
+        if a.shape[1:] != (det.box_version + 1,) or not np.isfinite(a).all() \
+                or not ((a[:, -1] >= det.det_cfg.soft_min_score)
+                        & (a[:, -1] <= 1)).all():
+            raise AssertionError(f"soft-NMS: malformed result {a[:2]}")
+    boxes, scores, idxs, kw, res = calls[0]
+    valid = res.valid
+    raw = scores[res.inds]
+    decayed = int(((res.scores < raw - 1e-6) & valid).sum())
+    kw = {k: v for k, v in kw.items()
+          if k not in ("sigma", "min_score", "method")}
+    hard = nms_module.sph_batched_nms(boxes, scores, idxs, **kw)
+    kept_by_hard = set(hard.inds[hard.valid].tolist())
+    kept_only_by_soft = [i for i in res.inds[valid].tolist()
+                         if i not in kept_by_hard]
+    if decayed == 0 or not kept_only_by_soft:
+        raise AssertionError(
+            f"soft-NMS decayed {decayed} scores and kept "
+            f"{len(kept_only_by_soft)} boxes that hard NMS removes")
+    return {"config": os.path.relpath(FRCNN_SOFT_CONFIG, ROOT),
+            "detections": n_det, "request_ms": ms,
+            "head_std_before_calibration": before,
+            "scores_decayed": decayed,
+            "kept_that_hard_nms_removes": len(kept_only_by_soft),
+            "hard_nms_detections": int(hard.valid.sum()),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def phase_train_frcnn(seed: int, reps: int) -> tuple[int, list]:
+    """The Faster R-CNN family: the indoor360 R50 leaf through the trainer
+    (one launch of the pairwise kernel a step at (256, 130944), K1's largest
+    real input, and four at (64, 576), the RoI sampler's), the kernel
+    bitwise equal to its plain version on the last step's inputs at both
+    shapes, then a fixed batch; one step of the OHEM leaf, two of the R18
+    Sphere-bench leaf (the CIoU RoI loss), one request to the soft-NMS leaf.
+    The OHEM leaf's step is also timed on a fixed batch.
+    Returns the kernel's launches over the trainers' steps and its checks."""
+    device = resolve_device()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = drive_trainer(FRCNN_CONFIG, FRCNN_TRAIN_STEPS, FRCNN_TRAIN_BATCH,
+                        seed)
+    trainer_peak = torch.cuda.max_memory_allocated()
+    model, det_cfg, _, optimizer, _ = run["parts"]
+    assert_full_width_frcnn(run["cfg"], model, det_cfg, FRCNN_LEAF,
+                            FRCNN_RPN_SHAPE, FRCNN_ROI_SHAPE, "random", "iou")
+    frcnn_calls_ok(run, FRCNN_TRAIN_STEPS, FRCNN_RPN_SHAPE, FRCNN_ROI_SHAPE,
+                   FRCNN_TRAIN_BATCH)
+    launches = run["launches"]
+    checks = []
+    for shape, what in ((FRCNN_RPN_SHAPE, "RPN gt_boxes x the anchors"),
+                        (FRCNN_ROI_SHAPE, "the last image's gts x its "
+                                          "proposals + gts (RoI sampler)")):
+        b1, b2 = run["last_inputs"][shape[:2]]
+        checks.append({"input": f"train_frcnn: {what}, the trainer's last "
+                                "step",
+                       **check_kernel(KERNELS[0], b1, b2, reps,
+                                      identical=False)})
+        if not checks[-1]["bitwise_equal"]:
+            raise AssertionError(
+                f"the kernel differs from its plain version by "
+                f"{checks[-1]['max_abs_err']} at the {what} input")
+    summary = trainer_summary(run)
+    del model, optimizer, run
+
+    _, _, _, step, batch = fixed_batch(FRCNN_CONFIG, FRCNN_TRAIN_BATCH, seed,
+                                       device)
+    report = step_report(step, batch, FRCNN_FIXED_STEPS)
+    sweeps = rpn_nms_sweeps(step, batch)
+    del step, batch
+
+    ohem = drive_trainer(FRCNN_OHEM_CONFIG, 1, FRCNN_TRAIN_BATCH, seed)
+    model, det_cfg, _, _, _ = ohem["parts"]
+    assert_full_width_frcnn(ohem["cfg"], model, det_cfg, FRCNN_LEAF,
+                            FRCNN_RPN_SHAPE, FRCNN_ROI_SHAPE, "ohem", "iou")
+    frcnn_calls_ok(ohem, 1, FRCNN_RPN_SHAPE, FRCNN_ROI_SHAPE,
+                   FRCNN_TRAIN_BATCH)
+    launches += ohem["launches"]
+    del model, ohem["parts"]
+    # the OHEM step's time beside the random sampler's, on the same batch
+    _, _, _, step, batch = fixed_batch(FRCNN_OHEM_CONFIG, FRCNN_TRAIN_BATCH,
+                                       seed, device)
+    ohem_timed = timed_steps(step, batch, 3)
+    del step, batch
+
+    r18_batch = FRCNN_R18_RPN_SHAPE[0] // FRCNN_R18_ROI_SHAPE[0]
+    torch.cuda.reset_peak_memory_stats()
+    r18 = drive_trainer(FRCNN_R18_CONFIG, FRCNN_R18_STEPS, r18_batch, seed)
+    model, det_cfg, _, _, _ = r18["parts"]
+    assert_full_width_frcnn(r18["cfg"], model, det_cfg, FRCNN_R18_LEAF,
+                            FRCNN_R18_RPN_SHAPE, FRCNN_R18_ROI_SHAPE,
+                            "random", "ciou")
+    frcnn_calls_ok(r18, FRCNN_R18_STEPS, FRCNN_R18_RPN_SHAPE,
+                   FRCNN_R18_ROI_SHAPE, r18_batch)
+    launches += r18["launches"]
+    r18_peak = torch.cuda.max_memory_allocated()
+    del model, r18["parts"]
+
+    torch.cuda.reset_peak_memory_stats()
+    served = serve_soft_nms(seed)
+    emit({"phase": "train_frcnn",
+          "config": os.path.relpath(FRCNN_CONFIG, ROOT),
+          "steps": FRCNN_TRAIN_STEPS, "batch": FRCNN_TRAIN_BATCH, **summary,
+          "trainer_peak_memory_bytes": trainer_peak,
+          "fixed_batch": report, "rpn_nms_sweeps_of_one_step": sweeps,
+          "kernel_on_frcnn_inputs": checks,
+          "ohem": {"config": os.path.relpath(FRCNN_OHEM_CONFIG, ROOT),
+                   "steps": 1, **trainer_summary(ohem),
+                   "fixed_batch_step_ms": {
+                       k: ohem_timed[k] for k in ("first_step_ms",
+                                                  "steady_step_ms")}},
+          "r18": {"config": os.path.relpath(FRCNN_R18_CONFIG, ROOT),
+                  "steps": FRCNN_R18_STEPS, "batch": r18_batch,
+                  **trainer_summary(r18), "peak_memory_bytes": r18_peak},
+          "soft_nms_request": served})
+    return launches, checks
 
 
 def main(argv=None) -> int:
@@ -1747,9 +2050,12 @@ def main(argv=None) -> int:
     phase_train_kent(args.seed)
     phase_train_fcos(args.seed)
     phase_serve_families(args.seed)
+    trained, on_frcnn_input = phase_train_frcnn(args.seed, args.reps)
+    launches["sph2pob_iou_pairwise"] += trained
     # K1 on the inputs its paths gave it, beside its seeded shapes
     shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input,
-                                       on_iou_input, on_ssd_input]
+                                       on_iou_input, on_ssd_input,
+                                       *on_frcnn_input]
     idle = [k.name for k in KERNELS if launches[k.name] < 1]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

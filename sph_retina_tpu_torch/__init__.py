@@ -3,16 +3,18 @@
 Spherical object detection on an NVIDIA Hopper GPU: plain tensor code is
 PyTorch, and the two fused Sph2Pob IoU kernels that the JAX package wrote in
 Pallas for the TPU (pairwise and aligned) are hand-written CUDA kernels
-(``csrc/``, built at first use). So far the package holds, for the
-single-stage families (RetinaNet, FCOS, SSD-VGG16):
+(``csrc/``, built at first use). So far the package holds, for every
+detector family (RetinaNet, FCOS, SSD-VGG16, Faster R-CNN):
 
 - the serving path: ``init_detector`` / ``inference_detector`` (``apis.py``)
-  and the HTTP server (``python -m sph_retina_tpu_torch.serve``);
+  and the HTTP server (``python -m sph_retina_tpu_torch.serve``), with
+  greedy NMS or soft-NMS;
 - the training path: ``python -m sph_retina_tpu_torch.train CONFIG`` (anchor
   assignment through the pairwise kernel, or point targets for FCOS; focal or
-  cross-entropy with hard-negative mining; the L1, IoU-family, Gaussian and
-  Kent regression losses; SGD with warm-up, clip, frozen stages and EMA, the
-  synthetic dataset);
+  cross-entropy with hard-negative mining; the RPN, RoIAlign and the RoI
+  sampler, random or OHEM; the L1, IoU-family, Gaussian and Kent regression
+  losses; SGD with warm-up, clip, frozen stages and EMA, the synthetic
+  dataset);
 - the spherical IoU backends (``iou.api.sph_overlaps``: the three Sph2Pob
   transforms, the unbiased oracle, Sph-IoU, FoV-IoU, the chart IoU, the Kent
   KLD surrogate), in plain differentiable PyTorch;

@@ -9,6 +9,9 @@
    (classes kept apart by masking it, since spherical boxes cannot use the
    coordinate-offset trick),
 4. top-``max_num`` of the survivors, returned as fixed-size tensors + mask.
+
+Soft-NMS (``sph_batched_soft_nms``) shares steps 1-2 and then decays scores
+instead of removing boxes.
 """
 
 from __future__ import annotations
@@ -118,6 +121,87 @@ def sph_batched_nms(
                                    descending=True, stable=True)
     final_scores, sel = final_scores[:m], sel[:m]
     valid = final_scores > NEG_INF / 2
+    return NMSResult(
+        boxes=top_boxes[sel],
+        scores=torch.where(valid, final_scores, 0.0),
+        labels=torch.where(valid, top_idxs[sel], -1).to(torch.int32),
+        inds=order[sel],
+        valid=valid,
+    )
+
+
+def planar_batched_nms(boxes, scores, idxs, **kwargs) -> NMSResult:
+    """PlanarNMS: suppression in the chart, spherical boxes returned."""
+    kwargs["backend"] = "planar"
+    return sph_batched_nms(boxes, scores, idxs, **kwargs)
+
+
+def sph_batched_soft_nms(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    idxs: torch.Tensor,
+    *,
+    iou_threshold: float = 0.3,
+    sigma: float = 0.5,
+    min_score: float = 1e-3,
+    method: str = "linear",
+    max_num: int = 100,
+    nms_pre: int = 1000,
+    backend: str = "sph2pob_efficient",
+    class_agnostic: bool = False,
+    valid_mask: torch.Tensor | None = None,
+) -> NMSResult:
+    """Soft-NMS with a spherical (or planar-chart) IoU backend.
+
+    Instead of removing overlapping boxes, each picked box decays the scores
+    of its overlaps: ``linear``: ``s *= 1 - iou`` where ``iou >
+    iou_threshold``; ``gaussian``: ``s *= exp(-iou^2 / sigma)`` (Bodla et
+    al., ICCV 2017). Picks below ``min_score`` are invalid.
+
+    Only the first ``max_num`` picks can reach the output (a pick's score is
+    frozen when it is picked and scores only decrease), so ``max_num``
+    argmax + decay sweeps over the (k,) score vector are exact. The picked
+    index stays a tensor on the device: no sweep waits for it.
+    """
+    n = boxes.shape[0]
+    k = min(nms_pre, n)
+    s = scores if valid_mask is None else torch.where(valid_mask, scores,
+                                                      NEG_INF)
+
+    top_scores, order = torch.sort(s, descending=True, stable=True)
+    top_scores, order = top_scores[:k], order[:k]
+    top_boxes = boxes[order]
+    top_idxs = idxs[order]
+
+    iou = _pairwise_iou(top_boxes, backend)
+    if not class_agnostic:
+        same = top_idxs[:, None] == top_idxs[None, :]
+        iou = torch.where(same, iou, 0.0)
+    # a box never decays itself
+    iou = iou * (1.0 - torch.eye(k, dtype=iou.dtype, device=iou.device))
+
+    if method == "linear":
+        decay = torch.where(iou > iou_threshold, 1.0 - iou, 1.0)
+    elif method == "gaussian":
+        decay = torch.exp(-(iou * iou) / sigma)
+    else:
+        raise ValueError(f"soft-NMS method {method!r}")
+
+    m = min(max_num, k)
+    live = torch.where(top_scores > NEG_INF / 2, top_scores, NEG_INF)
+    picks = [torch.zeros((0,), dtype=torch.int64, device=live.device)]
+    picked_scores = [live[:0]]
+    for _ in range(m):
+        j = live.argmax(dim=0, keepdim=True)            # (1,), the first max
+        sj = live.gather(0, j)
+        picks.append(j)
+        picked_scores.append(sj)
+        live = live * torch.where(sj > NEG_INF / 2, decay.index_select(0, j)[0],
+                                  1.0)
+        live = live.index_fill(0, j, NEG_INF)
+    sel = torch.cat(picks)
+    final_scores = torch.cat(picked_scores)
+    valid = final_scores > max(min_score, NEG_INF / 2)
     return NMSResult(
         boxes=top_boxes[sel],
         scores=torch.where(valid, final_scores, 0.0),

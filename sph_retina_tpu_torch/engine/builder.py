@@ -14,8 +14,10 @@ from .train import SGDOptimizer, build_optimizer, step_lr_schedule
 
 
 def parse_test_nms_cfg(cfg: dict) -> dict:
-    """The post-processing keys a detector reads from ``test_cfg``
-    (score_thr 0.05 / max_per_img 100 / nms 0.5 are the configs' defaults)."""
+    """The post-processing keys every detector family reads from
+    ``test_cfg`` (score_thr 0.05 / max_per_img 100 / nms 0.5 are the
+    configs' defaults; ``method`` / ``sigma`` / ``min_score`` are
+    soft-NMS's)."""
     test_cfg = cfg.get("test_cfg", {})
     nms = test_cfg.get("nms", {})
     return dict(
@@ -23,6 +25,9 @@ def parse_test_nms_cfg(cfg: dict) -> dict:
         max_per_img=test_cfg.get("max_per_img", 100),
         nms_type=nms.get("type", "nms"),
         nms_iou_thr=nms.get("iou_threshold", 0.5),
+        soft_method=nms.get("method", "linear"),
+        soft_sigma=nms.get("sigma", 0.5),
+        soft_min_score=nms.get("min_score", 1e-3),
     )
 
 

@@ -3,9 +3,9 @@
 A family adapter exposes ``build(cfg_dict) -> (module, detector config)``,
 ``loss_fn(model, cfg) -> f(batch, generator) -> (total, dict)`` and
 ``predict_fn(model, cfg) -> f(images) -> NMSResult``;
-``make_generic_train_step`` serves every family. The single-stage families
-(RetinaNet, FCOS, SSD) are available; Faster R-CNN raises
-``NotImplementedError`` by name.
+``make_generic_train_step`` serves every family: RetinaNet, FCOS, SSD and
+the two-stage Faster R-CNN, whose loss draws its RoI sample from the
+generator.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..data.pipeline import maybe_normalize_images
+from ..models import faster_rcnn as frcnn
 from ..models.fcos import SphFCOS, fcos_config, fcos_loss, fcos_predict
 from ..models.single_stage import retina_loss, retina_predict
 from ..models.ssd import SphSSD, ssd_config, ssd_loss, ssd_predict
@@ -65,7 +66,7 @@ class RetinaNetFamily:
         anchors = cfg.flat_anchors(_device_of(model))
 
         def f(batch, generator=None):
-            del generator  # drawn from by families that sample (none yet)
+            del generator  # only Faster R-CNN's RoI sampler draws from it
             cls, reg = model(batch["images"])
             losses = retina_loss(cfg, cls, reg, anchors, batch["gt_boxes"],
                                  batch["gt_labels"], batch["gt_mask"])
@@ -173,6 +174,83 @@ class SSDFamily:
         return f
 
 
+class FasterRCNNFamily:
+    name = "SphFasterRCNN"
+
+    @staticmethod
+    def build(cfg_dict):
+        from .builder import parse_test_nms_cfg
+
+        c = _common(cfg_dict)
+        model = frcnn.SphFasterRCNN(num_classes=c["num_classes"],
+                                    box_version=c["box_version"],
+                                    dtype=c["dtype"], **c["backbone"])
+        # like the JAX package, the family reads neither the assigner's
+        # backend nor test_cfg.iou_calculator: its own defaults hold
+        sampler = cfg_dict.get("train_cfg", {}).get("sampler", {})
+        sampler_type = {"OHEMSampler": "ohem", "ohem": "ohem"}.get(
+            sampler.get("type", "random"), "random")
+        return model, frcnn.faster_rcnn_config(
+            c["num_classes"], img_size=c["img_size"],
+            box_version=c["box_version"], sampler_type=sampler_type,
+            **_reg_loss_kwargs(cfg_dict), **parse_test_nms_cfg(cfg_dict))
+
+    @staticmethod
+    def loss_fn(model, cfg):
+        device = _device_of(model)
+        anchors = cfg.flat_anchors(device)
+        level_anchors = cfg.level_anchors(device)
+
+        def f(batch, generator=None):
+            gt = (batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"])
+            (rpn_cls, rpn_reg), feats = model(batch["images"])
+            losses = frcnn.rpn_loss(cfg, rpn_cls, rpn_reg, gt[0], gt[2],
+                                    anchors)
+            props, _, pvalid = frcnn.rpn_proposals(cfg, rpn_cls, rpn_reg,
+                                                   level_anchors)
+
+            hardness_fn = None
+            if cfg.sampler_type == "ohem":
+                # a head forward (no gradient: sample_rois runs without)
+                # over every candidate; its cross-entropy against the
+                # assigned label ranks the candidates' hardness
+                def hardness_fn(cand, labels_full):
+                    rf = frcnn.roi_features(cfg, feats, cand)
+                    logits, _ = model.roi(rf.flatten(0, 1))
+                    logp = torch.log_softmax(logits, dim=-1)
+                    ce = -logp.gather(
+                        1, labels_full.reshape(-1, 1).to(torch.int64))[:, 0]
+                    return ce.reshape(labels_full.shape)
+
+            t = frcnn.sample_rois(cfg, generator, props, pvalid, *gt,
+                                  hardness_fn=hardness_fn)
+            rf = frcnn.roi_features(cfg, feats, t.rois)
+            cls, reg = model.roi(rf.flatten(0, 1))
+            losses.update(frcnn.rcnn_loss(cfg, cls, reg, t))
+            return total_loss(losses), losses
+
+        return f
+
+    @staticmethod
+    def predict_fn(model, cfg):
+        device = _device_of(model)
+        level_anchors = cfg.level_anchors(device)
+
+        @torch.no_grad()
+        def f(images):
+            images = maybe_normalize_images(images.to(device))
+            (rpn_cls, rpn_reg), feats = model(images)
+            props, _, pvalid = frcnn.rpn_proposals(cfg, rpn_cls, rpn_reg,
+                                                   level_anchors)
+            rf = frcnn.roi_features(cfg, feats, props)
+            cls, reg = model.roi(rf.flatten(0, 1))
+            b, p = props.shape[:2]
+            return frcnn.rcnn_predict(cfg, cls.reshape(b, p, -1),
+                                      reg.reshape(b, p, -1), props, pvalid)
+
+        return f
+
+
 FAMILIES = {
     "SphRetinaNet": RetinaNetFamily,
     "RetinaNet": RetinaNetFamily,
@@ -180,16 +258,13 @@ FAMILIES = {
     "FCOS": FCOSFamily,
     "SphSSD": SSDFamily,
     "SSD": SSDFamily,
+    "SphFasterRCNN": FasterRCNNFamily,
+    "FasterRCNN": FasterRCNNFamily,
 }
-_NOT_PORTED = ("SphFasterRCNN", "FasterRCNN")
 
 
 def get_family(cfg_dict):
     kind = cfg_dict["model"].get("type", "SphRetinaNet")
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"detector type {kind!r} is not available in this package yet; "
-            f"only {sorted(set(FAMILIES))} are")
     if kind not in FAMILIES:
         raise ValueError(f"unknown detector type {kind!r}; "
                          f"choose from {sorted(set(FAMILIES))}")
@@ -201,7 +276,8 @@ def make_generic_train_step(family, model, cfg, optimizer: SGDOptimizer,
     """Train step serving every family: ``train_step(batch) -> metrics`` on
     a batch that lies on the model's device; the model and the optimiser are
     updated in place. The generator, seeded from ``seed``, is what a family
-    that samples (RoI sampling) draws from; RetinaNet draws nothing."""
+    that samples draws from (Faster R-CNN's RoI sampler); the single-stage
+    families draw nothing."""
     loss = family.loss_fn(model, cfg)
     device = next(model.parameters()).device
     generator = torch.Generator(device=device).manual_seed(seed)

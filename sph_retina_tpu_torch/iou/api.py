@@ -26,7 +26,6 @@ from functools import partial
 
 import torch
 
-from ..boxes.formator import sph2planar_boxes
 from ..geometry.boxes import standardize_spherical_box
 from ..geometry.jitter import jitter_rotated_boxes, jitter_spherical_boxes
 from ..geometry.sph2pob import TRANSFORMS, sph2pob_legacy
@@ -77,6 +76,10 @@ def _aligned_boxes_iou_xyxy(b1, b2, eps=1e-8):
 
 def _naive_deg(boxes1, boxes2):
     """IoU of the boxes' rectangles in the equirectangular chart."""
+    # imported here: the boxes package imports this module (through its
+    # NMS), so a module-level import would be circular
+    from ..boxes.formator import sph2planar_boxes
+
     if boxes1.shape[-1] == 4:
         return _aligned_boxes_iou_xyxy(sph2planar_boxes(boxes1),
                                        sph2planar_boxes(boxes2))

@@ -3,10 +3,12 @@
 ``from_flax(params, batch_stats)`` takes the nested dicts of numpy arrays
 that ``utils.publish.load_published`` returns — the layout of the Flax
 modules of the JAX package — and returns a flat ``state_dict`` for the
-port's detectors (``SphRetinaNet``, ``SphFCOS``, ``SphSSD``):
+port's detectors (``SphRetinaNet``, ``SphFCOS``, ``SphSSD``,
+``SphFasterRCNN``):
 
 - conv ``kernel`` (H, W, I, O) -> ``weight`` (O, I, H, W), grouped convs too
-  (both frameworks keep I = in_channels / groups there); ``bias`` as is;
+  (both frameworks keep I = in_channels / groups there); dense ``kernel``
+  (I, O) -> ``weight`` (O, I); ``bias`` as is;
 - batch norm ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` ->
   ``weight``/``bias``/``running_mean``/``running_var``; every other
   ``scale`` (GroupNorm, SSD's L2Norm, FCOS's per-level scalar) -> ``weight``;
@@ -48,11 +50,12 @@ def from_flax(params: dict, batch_stats: dict | None = None) -> dict:
     for path, leaf in _walk(params):
         module, name = ".".join(path[:-1]), path[-1]
         if name == "kernel":
-            if leaf.ndim != 4:
+            if leaf.ndim not in (2, 4):
                 raise ValueError(
-                    f"{'/'.join(path)}: expected an (H, W, I, O) conv kernel, "
-                    f"got shape {leaf.shape}")
-            put(f"{module}.weight", leaf.transpose(3, 2, 0, 1))
+                    f"{'/'.join(path)}: expected an (H, W, I, O) conv kernel "
+                    f"or an (I, O) dense one, got shape {leaf.shape}")
+            put(f"{module}.weight", leaf.transpose(
+                (3, 2, 0, 1) if leaf.ndim == 4 else (1, 0)))
         elif name == "scale":
             put(f"{module}.weight", leaf)
         elif name == "bias":
@@ -70,9 +73,9 @@ def from_flax(params: dict, batch_stats: dict | None = None) -> dict:
 def to_flax(state_dict: dict) -> tuple[dict, dict]:
     """Flat ``state_dict`` (or any dict of tensors under its keys, such as
     gradients by parameter name) -> nested ``(params, batch_stats)`` trees of
-    numpy arrays in the Flax layout. 4-d ``weight`` is a conv kernel, 1-d
-    or 0-d ``weight`` a ``scale`` (of a batch norm, a group norm, an L2Norm,
-    an FCOS level)."""
+    numpy arrays in the Flax layout. 4-d ``weight`` is a conv kernel, 2-d
+    a dense one, 1-d or 0-d ``weight`` a ``scale`` (of a batch norm, a group
+    norm, an L2Norm, an FCOS level)."""
     params: dict = {}
     batch_stats: dict = {}
     stats_names = {v: k for k, v in _BN_STATS.items()}
@@ -87,9 +90,9 @@ def to_flax(state_dict: dict) -> tuple[dict, dict]:
         value = tensor.detach().cpu().numpy()
         if name in stats_names:
             put(batch_stats, module + [stats_names[name]], value)
-        elif name == "weight" and value.ndim == 4:
-            put(params, module + ["kernel"],
-                np.ascontiguousarray(value.transpose(2, 3, 1, 0)))
+        elif name == "weight" and value.ndim in (2, 4):
+            put(params, module + ["kernel"], np.ascontiguousarray(
+                value.transpose((2, 3, 1, 0) if value.ndim == 4 else (1, 0))))
         elif name == "weight" and value.ndim <= 1:
             put(params, module + ["scale"], value)
         elif name == "bias":

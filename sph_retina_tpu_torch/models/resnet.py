@@ -44,12 +44,13 @@ class Conv2d(nn.Conv2d):
 @torch.no_grad()
 def seeded_init_(model: nn.Module, generator: torch.Generator) -> None:
     """Random initialisation from an explicit generator, in parameter order:
-    conv kernels N(0, 1/fan_in), biases 0, every other parameter (norm
-    scales, learned scalars) 1; batch-norm moments at identity. A model
-    sets its own special values (a focal prior, an L2Norm scale) after."""
+    conv and dense kernels N(0, 1/fan_in), biases 0, every other parameter
+    (norm scales, learned scalars) 1; batch-norm moments at identity. A
+    model sets its own special values (a focal prior, an L2Norm scale)
+    after."""
     for name, p in model.named_parameters():
-        if p.ndim == 4:
-            fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+        if p.ndim in (2, 4):
+            fan_in = math.prod(p.shape[1:])
             p.copy_(torch.randn(p.shape, generator=generator)
                     / math.sqrt(fan_in))
         elif name.endswith("bias"):

@@ -31,7 +31,7 @@ from torch import nn
 from ..boxes.anchors import SphAnchorGenerator
 from ..boxes.assigner import MaxIoUAssigner
 from ..boxes.coders import SphBBoxCoder
-from ..boxes.nms import NMSResult, sph_batched_nms
+from ..boxes.nms import NMSResult, sph_batched_nms, sph_batched_soft_nms
 from ..iou.api import canonical_backend, sph_overlaps
 from ..losses import sigmoid_focal_loss, sph_l1_loss
 from ..ops.sph2pob_iou import sph2pob_iou_pairwise
@@ -92,7 +92,11 @@ class DetectorConfig:
     nms_iou_thr: float = 0.5
     max_per_img: int = 100
     nms_backend: str = "planar"
+    # nms=dict(type='soft_nms', ...) selects score-decay suppression
     nms_type: str = "nms"
+    soft_method: str = "linear"
+    soft_sigma: float = 0.5
+    soft_min_score: float = 1e-3
     # focal loss
     focal_gamma: float = 2.0
     focal_alpha: float = 0.25
@@ -277,12 +281,9 @@ def retina_predict(
     bbox_preds: Sequence[torch.Tensor],
     level_anchors: Sequence[torch.Tensor],
 ) -> NMSResult:
-    """Decode + per-class NMS; returns fixed-size results stacked over the
-    batch: every field has a leading (B,) axis."""
-    if cfg.nms_type != "nms":
-        raise NotImplementedError(
-            f"test_cfg.nms.type={cfg.nms_type!r}: only plain 'nms' is "
-            "available in this package yet")
+    """Decode + per-class NMS (soft-NMS where ``cfg.nms_type`` is
+    ``soft_nms``); returns fixed-size results stacked over the batch: every
+    field has a leading (B,) axis."""
     per_image = []
     for b in range(cls_scores[0].shape[0]):
         parts = [
@@ -294,12 +295,13 @@ def retina_predict(
         top, labels, deltas, priors, valid = (
             torch.cat([p[i] for p in parts]) for i in range(5))
         boxes = cfg.bbox_coder.decode(priors, deltas)
-        per_image.append(sph_batched_nms(
-            boxes, top, labels,
-            iou_threshold=cfg.nms_iou_thr,
-            max_num=cfg.max_per_img,
-            nms_pre=cfg.nms_pre,
-            backend=cfg.nms_backend,
-            valid_mask=valid,
-        ))
+        kw = dict(iou_threshold=cfg.nms_iou_thr, max_num=cfg.max_per_img,
+                  nms_pre=cfg.nms_pre, backend=cfg.nms_backend,
+                  valid_mask=valid)
+        if cfg.nms_type == "soft_nms":
+            per_image.append(sph_batched_soft_nms(
+                boxes, top, labels, sigma=cfg.soft_sigma,
+                min_score=cfg.soft_min_score, method=cfg.soft_method, **kw))
+        else:
+            per_image.append(sph_batched_nms(boxes, top, labels, **kw))
     return NMSResult(*(torch.stack(f) for f in zip(*per_image)))

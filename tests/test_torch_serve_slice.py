@@ -209,7 +209,5 @@ def test_entry_points_raise_without_a_card():
            "img_size": (64, 128), "bf16": False}
     with pytest.raises(RuntimeError, match="CUDA"):
         tapis.init_detector(cfg)
-    with pytest.raises(NotImplementedError, match="SphFasterRCNN"):
-        tapis.init_detector(dict(cfg, model=dict(cfg["model"],
-                                                 type="SphFasterRCNN")),
-                            device="cpu")
+    with pytest.raises(NotImplementedError, match=r"model\.pth.*\.npz"):
+        tapis.init_detector(cfg, "model.pth", device="cpu")

@@ -391,7 +391,7 @@ def test_to_flax_is_the_inverse_of_from_flax(slice_):
     assert again.keys() == state.keys()
     assert all(torch.equal(again[k], state[k]) for k in state)
     with pytest.raises(KeyError, match="unknown state_dict entry"):
-        to_flax({"backbone.conv1.weight": torch.zeros((2, 2))})
+        to_flax({"backbone.conv1.weight": torch.zeros((2, 2, 2))})
 
 
 def test_trainer_cli_writes_finite_metrics(tmp_path, monkeypatch, capsys):
@@ -425,8 +425,8 @@ def test_trainer_cli_writes_finite_metrics(tmp_path, monkeypatch, capsys):
     ([CONFIG, "--synthetic", "--device", "cpu", "--launcher", "torch"],
      "--launcher"),
     ([CONFIG, "--device", "cpu"], "--synthetic"),
-    ([CONFIG, "--synthetic", "--device", "cpu", "--cfg-options",
-      "model.type=SphFasterRCNN"], "SphFasterRCNN"),
+    ([CONFIG, "--synthetic", "--device", "cpu", "--auto-resume"],
+     "--auto-resume"),
 ], ids=["resume", "load_backbone", "launcher", "annotation_file",
         "iou_loss_of_the_config"])
 def test_trainer_cli_refuses_by_name(argv, match, tmp_path):
