@@ -106,10 +106,14 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from sph_retina_tpu_torch import benchmark_iou
+from sph_retina_tpu_torch import publish as publish_cli
+from sph_retina_tpu_torch import test as test_cli
 from sph_retina_tpu_torch import train as train_cli
 from sph_retina_tpu_torch.apis import inference_detector, init_detector
 from sph_retina_tpu_torch.boxes import nms as nms_module
-from sph_retina_tpu_torch.data import to_device
+from sph_retina_tpu_torch.engine import evaluator, runner
+from sph_retina_tpu_torch.engine.eval import eval_spherical_map
+from sph_retina_tpu_torch.data import SphCocoDataset, to_device
 from sph_retina_tpu_torch.data.pipeline import maybe_normalize_images
 from sph_retina_tpu_torch.losses import (
     sph2pob_iou_loss,
@@ -1073,8 +1077,9 @@ def drive_trainer(config: str, steps: int, batch: int, seed: int) -> dict:
     built, calls, last_inputs = {}, [], {}
     build_training = train_cli.build_training
 
-    def capturing(cfg, dev, seed=0):
-        built["cfg"], built["parts"] = cfg, build_training(cfg, dev, seed)
+    def capturing(cfg, *args, **kwargs):
+        built["cfg"] = cfg
+        built["parts"] = build_training(cfg, *args, **kwargs)
         return built["parts"]
 
     def recording(boxes1, boxes2):
@@ -2008,6 +2013,418 @@ def phase_train_frcnn(seed: int, reps: int) -> tuple[int, list]:
     return launches, checks
 
 
+# --------------------------------------------------------------------------- #
+# the training workflow on an annotation file
+# --------------------------------------------------------------------------- #
+COCO_TRAIN_IMAGES = 16   # 4 steps an epoch at batch 4
+COCO_VAL_IMAGES = 8      # 2 batches, one K1 launch an image in the NMS
+COCO_CROWD = 3           # iscrowd annotations in val
+COCO_EPOCHS = 2
+COCO_RESUME_EPOCHS = 3
+COCO_CLASS_COLORS = np.array([[255, 64, 64], [64, 255, 64], [64, 64, 255],
+                              [255, 255, 64], [255, 64, 255], [64, 255, 255]],
+                             np.uint8)
+
+
+def write_coco(root: str, split: str, n_images: int, num_classes: int,
+               img_size, seed: int, n_crowd: int = 0) -> tuple[str, str]:
+    """A COCO-style set of noise panoramas, each with 1-6 RBFoV boxes painted
+    at their equirectangular footprint, over ``num_classes`` categories;
+    the first ``n_crowd`` images get one ``iscrowd`` annotation each.
+    Returns (annotation file, image directory)."""
+    from PIL import Image
+
+    h, w = img_size
+    img_dir = os.path.join(root, split)
+    os.makedirs(img_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    images, annotations = [], []
+    for img_id in range(1, n_images + 1):
+        canvas = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+        n = int(rng.integers(1, 7))
+        for k in range(n + (img_id <= n_crowd)):
+            label = int(rng.integers(0, num_classes))
+            box = [float(rng.uniform(40.0, 320.0)),
+                   float(rng.uniform(50.0, 130.0)),
+                   float(rng.uniform(20.0, 60.0)),
+                   float(rng.uniform(20.0, 55.0)),
+                   float(rng.uniform(-30.0, 30.0))]
+            t, p, fx, fy = box[:4]
+            canvas[max(int((p - fy / 2) / 180 * h), 0):
+                   min(int((p + fy / 2) / 180 * h), h),
+                   max(int((t - fx / 2) / 360 * w), 0):
+                   min(int((t + fx / 2) / 360 * w), w)] = \
+                COCO_CLASS_COLORS[label % len(COCO_CLASS_COLORS)]
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": img_id,
+                "category_id": label + 1, "bbox": box, "area": fx * fy,
+                "iscrowd": int(k == n)})
+        name = f"{split}_{img_id:04d}.png"
+        Image.fromarray(canvas).save(os.path.join(img_dir, name))
+        images.append({"id": img_id, "file_name": name, "width": w,
+                       "height": h})
+    ann_file = os.path.join(root, f"{split}.json")
+    with open(ann_file, "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": i + 1, "name": f"class_{i}"}
+                                  for i in range(num_classes)]}, f)
+    return ann_file, img_dir + "/"
+
+
+class _Workflow:
+    """Instruments the workflow's entry points without changing them: the
+    pairwise kernel's calls at the assignment and in the NMS, each
+    evaluation (time, split into predict and matching; peak memory apart
+    from training's), each checkpoint save and restore (time; the restored
+    state held bitwise against the file), and the first step after a
+    restore."""
+
+    def __init__(self):
+        self.calls = {"assign": [], "nms": []}
+        self.nms_last = []
+        self.evals, self.saves, self.restores = [], [], []
+        self.train_peaks = []
+        self.first_step_ms = None
+        self._timing_first = False
+
+    @contextlib.contextmanager
+    def installed(self):
+        wf = self
+        real = {"ckpt": train_cli.Checkpointer,
+                "t_eval": train_cli.evaluate_dataset,
+                "c_eval": test_cli.evaluate_dataset,
+                "build": train_cli.build_training}
+
+        def recording(site):
+            def call(boxes1, boxes2):
+                wf.calls[site].append([list(boxes1.shape),
+                                       list(boxes2.shape)])
+                if site == "nms":
+                    wf.nms_last[:] = [boxes1.clone()]
+                return sph2pob_iou_pairwise(boxes1, boxes2)
+            return call
+
+        class Timed(real["ckpt"]):
+            def save(self, model, optimizer, epoch, metric=None,
+                     generator=None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path = super().save(model, optimizer, epoch, metric,
+                                    generator)
+                wf.saves.append({"epoch": epoch, "ms": (time.perf_counter()
+                                                        - t0) * 1e3,
+                                 "bytes": os.path.getsize(path)})
+                return path
+
+            def restore(self, model, optimizer, path=None, generator=None):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step = super().restore(model, optimizer, path, generator)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                saved = runner.read_checkpoint(self.latest_path())
+                own = model.state_dict()
+                bufs = optimizer.state_dict()["momentum_buffers"]
+                wf.restores.append({
+                    "ms": ms, "step": step,
+                    "model_bitwise": all(torch.equal(own[k].cpu(), v)
+                                         for k, v in saved["model"].items()),
+                    "momentum_bitwise": all(
+                        torch.equal(bufs[k].cpu(), v) for k, v in
+                        saved["optimizer"]["momentum_buffers"].items()),
+                    "generator_bitwise": torch.equal(
+                        generator.get_state(), saved["generator"])})
+                wf._timing_first = True
+                return step
+
+        def timed_eval(model, cfg, loader, **kw):
+            predict, predict_ms = kw.pop("predict"), []
+
+            def timed_predict(images):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = predict(images)
+                torch.cuda.synchronize()
+                predict_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            match_ms, n_dets = [], []
+
+            def timed_match(det_results, *a, **k):
+                n_dets.append(sum(len(boxes) for boxes, _, _ in det_results))
+                t0 = time.perf_counter()
+                out = eval_spherical_map(det_results, *a, **k)
+                match_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            wf.train_peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            evaluator.eval_spherical_map = timed_match
+            t0 = time.perf_counter()
+            try:
+                metrics = real["t_eval"](model, cfg, loader,
+                                         predict=timed_predict, **kw)
+            finally:
+                evaluator.eval_spherical_map = eval_spherical_map
+            seconds = time.perf_counter() - t0
+            n = metrics["n_images"]
+            wf.evals.append({
+                "seconds": seconds, "images": n, "detections": sum(n_dets),
+                "ms_an_image": seconds * 1e3 / n,
+                "predict_ms_an_image": sum(predict_ms) / n,
+                "matching_ms_an_image": sum(match_ms) / n,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+            torch.cuda.reset_peak_memory_stats()
+            return metrics
+
+        def building(*a, **kw):
+            parts = real["build"](*a, **kw)
+            step = parts[4]
+
+            def timed_step(batch):
+                if not wf._timing_first:
+                    return step(batch)
+                wf._timing_first = False
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(batch)
+                torch.cuda.synchronize()
+                wf.first_step_ms = (time.perf_counter() - t0) * 1e3
+                return out
+
+            timed_step.generator = step.generator
+            return (*parts[:4], timed_step)
+
+        train_cli.Checkpointer = Timed
+        train_cli.evaluate_dataset = test_cli.evaluate_dataset = timed_eval
+        train_cli.build_training = building
+        single_stage.sph2pob_iou_pairwise = recording("assign")
+        nms_module.sph2pob_iou_pairwise = recording("nms")
+        try:
+            yield self
+        finally:
+            train_cli.Checkpointer = real["ckpt"]
+            train_cli.evaluate_dataset = real["t_eval"]
+            test_cli.evaluate_dataset = real["c_eval"]
+            train_cli.build_training = real["build"]
+            single_stage.sph2pob_iou_pairwise = sph2pob_iou_pairwise
+            nms_module.sph2pob_iou_pairwise = sph2pob_iou_pairwise
+
+
+def _said(fn) -> str:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn()
+    if rc != 0:
+        raise AssertionError(f"exit code {rc}: {out.getvalue()!r}")
+    return out.getvalue()
+
+
+def val_detections(ann_file: str, seed: int, jitter: float):
+    """The val ground truth as detections (seeded continuous scores),
+    jittered by ``jitter`` degrees, and the annotations with their crowd
+    regions."""
+    ds = SphCocoDataset(ann_file=ann_file, box_version=5)
+    rng = np.random.default_rng(seed)
+    dets, anns = [], []
+    for i in range(len(ds)):
+        item = ds[i]
+        boxes = item["boxes"] + rng.normal(
+            0.0, jitter, item["boxes"].shape).astype(np.float32)
+        dets.append((boxes, rng.uniform(0.1, 1.0, len(boxes))
+                     .astype(np.float32), item["labels"]))
+        anns.append({k: item[k] for k in ("boxes", "labels", "ignore_boxes",
+                                          "ignore_labels")})
+    return dets, anns
+
+
+def phase_train_coco(seed: int, reps: int) -> tuple[int, dict]:
+    """The training workflow on an annotation file at full width: the
+    trainer on a COCO-style set with evaluation and checkpoints every epoch,
+    ``--auto-resume`` for one more epoch, the test CLI on the checkpoint,
+    spherical mAP on the card against the CPU, and publishing. Returns the
+    pairwise kernel's launches over the workflow and its check on the last
+    val image's NMS input."""
+    try:
+        import PIL  # noqa: F401
+        pil = True
+    except ImportError:
+        pil = False
+    device = resolve_device()
+    cfg = load_config(CONFIG)
+    classes = cfg["model"]["num_classes"]
+    img_size = tuple(cfg["img_size"])
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        t0 = time.perf_counter()
+        train_ann, train_dir = write_coco(tmp, "train", COCO_TRAIN_IMAGES,
+                                          classes, img_size, seed)
+        val_ann, val_dir = write_coco(tmp, "val", COCO_VAL_IMAGES, classes,
+                                      img_size, seed + 1, COCO_CROWD)
+        write_seconds = time.perf_counter() - t0
+        work, ckpts = os.path.join(tmp, "work"), os.path.join(tmp, "work",
+                                                              "ckpts")
+        data = [f"data.train.ann_file={train_ann}",
+                f"data.train.img_prefix={train_dir}",
+                *(f"data.{s}.{k}={v}" for s in ("val", "test")
+                  for k, v in (("ann_file", val_ann),
+                               ("img_prefix", val_dir)))]
+        argv = [CONFIG, "--seed", str(seed), "--work-dir", work,
+                "--cfg-options", "evaluation.interval=1",
+                "checkpoint_config.interval=1", "log_config.interval=1",
+                *data]
+        wf = _Workflow()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with wf.installed():
+            sph2pob_iou_pairwise.launches = 0
+            t0 = time.perf_counter()
+            said = _said(lambda: train_cli.main(
+                argv[:1] + ["--max-epochs", str(COCO_EPOCHS)] + argv[1:]))
+            first_seconds = time.perf_counter() - t0
+            wf.train_peaks.append(torch.cuda.max_memory_allocated())
+            first_launches = sph2pob_iou_pairwise.launches
+            first_calls = {k: list(v) for k, v in wf.calls.items()}
+            with open(os.path.join(work, "metrics.jsonl")) as f:
+                first = [json.loads(line) for line in f]
+            on_disk = sorted(os.listdir(ckpts))
+
+            said_resume = _said(lambda: train_cli.main(
+                argv[:1] + ["--max-epochs", str(COCO_RESUME_EPOCHS),
+                            "--auto-resume"] + argv[1:]))
+            with open(os.path.join(work, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            resumed_launches = sph2pob_iou_pairwise.launches - first_launches
+
+            out_json = os.path.join(tmp, "res.json")
+            said_test = _said(lambda: test_cli.main([
+                CONFIG, ckpts, "--out", out_json, "--cfg-options", *data]))
+            with open(out_json) as f:
+                tested = json.load(f)
+            nms_input = wf.nms_last[0]
+
+            said_pub = _said(lambda: publish_cli.main(
+                [CONFIG, ckpts, os.path.join(tmp, "pub", "model.npz")]))
+            (npz,) = os.listdir(os.path.join(tmp, "pub"))
+            npz = os.path.join(tmp, "pub", npz)
+            image = SphCocoDataset(ann_file=val_ann, img_prefix=val_dir)[0][
+                "img_path"]
+            from_npz = inference_detector(init_detector(CONFIG, npz), image)
+            from_ckpt = inference_detector(init_detector(CONFIG, ckpts),
+                                           image)
+            launches = sph2pob_iou_pairwise.launches
+
+        # (a) the first run: 8 logged steps, an evaluation and a checkpoint
+        # every epoch, one kernel launch a step and one a val image
+        steps = COCO_TRAIN_IMAGES // TRAIN_BATCH
+        logged = [r["step"] for r in first if r["prefix"] == "train"]
+        vals = [r for r in records if r["prefix"] == "val"]
+        if logged != list(range(1, COCO_EPOCHS * steps + 1)):
+            raise AssertionError(f"logged steps {logged}")
+        for r in vals:
+            if not all(math.isfinite(r[k]) for k in ("mAP", "AP50", "AP75")):
+                raise AssertionError(f"a val record is not finite: {r}")
+        if len([r for r in first if r["prefix"] == "val"]) != COCO_EPOCHS:
+            raise AssertionError(f"val records {first}")
+        if on_disk != sorted(["best", "latest.txt"] + [
+                f"epoch_{e}" for e in range(1, COCO_EPOCHS + 1)]):
+            raise AssertionError(f"checkpoint directory holds {on_disk}")
+        want_assign = [list(ASSIGN_SHAPE[::2]), list(ASSIGN_SHAPE[1:])]
+        if first_calls["assign"] != [want_assign] * (COCO_EPOCHS * steps):
+            raise AssertionError(f"assignment calls {first_calls['assign']}")
+        nms_calls = first_calls["nms"]
+        if len(nms_calls) != COCO_EPOCHS * COCO_VAL_IMAGES or any(
+                a != b or a[0] > 1000 or a[1] != 5 for a, b in nms_calls):
+            raise AssertionError(f"NMS calls {nms_calls}")
+        if first_launches != COCO_EPOCHS * (steps + COCO_VAL_IMAGES):
+            raise AssertionError(
+                f"{first_launches} kernel launches in the first run")
+
+        # (b) the resume: from step 8, steps 9-12, no replay, the state
+        # restored bitwise
+        if "resumed from step 8" not in said_resume:
+            raise AssertionError(f"the resumed trainer said {said_resume!r}")
+        later = [r["step"] for r in records[len(first):]
+                 if r["prefix"] == "train"]
+        if later != list(range(COCO_EPOCHS * steps + 1,
+                               COCO_RESUME_EPOCHS * steps + 1)):
+            raise AssertionError(f"the resumed run logged steps {later}")
+        (restored,) = wf.restores
+        if not (restored["step"] == COCO_EPOCHS * steps
+                and restored["model_bitwise"] and restored["momentum_bitwise"]
+                and restored["generator_bitwise"]):
+            raise AssertionError(f"the restore: {restored}")
+        if resumed_launches != steps + COCO_VAL_IMAGES:
+            raise AssertionError(
+                f"{resumed_launches} kernel launches after the resume")
+
+        # (c) the test CLI reproduces the last in-training evaluation
+        if f"loaded checkpoint at step {COCO_RESUME_EPOCHS * steps}" \
+                not in said_test:
+            raise AssertionError(f"the test CLI said {said_test!r}")
+        ap50_diff = abs(tested["AP50"] - vals[-1]["AP50"])
+        if not ap50_diff <= 1e-4:
+            raise AssertionError(
+                f"the test CLI's AP50 {tested['AP50']} differs from the "
+                f"last evaluation's {vals[-1]['AP50']} by {ap50_diff}")
+
+        # (d) an AP that is not trivially 0: the val ground truth as
+        # detections, and jittered, matched on the card and on the CPU
+        on_card = {}
+        for name, jitter in (("ground_truth", 0.0), ("jittered_3deg", 3.0)):
+            dets, anns = val_detections(val_ann, seed, jitter)
+            card = eval_spherical_map(dets, anns, classes,
+                                      backend="sph2pob_efficient",
+                                      device=device)
+            cpu = eval_spherical_map(dets, anns, classes,
+                                     backend="sph2pob_efficient",
+                                     device="cpu")
+            diff = max(abs(card[k] - cpu[k]) for k in ("mAP", "AP50", "AP75"))
+            if not diff <= 1e-6:
+                raise AssertionError(f"{name}: card {card} vs CPU {cpu}")
+            on_card[name] = {k: card[k] for k in ("mAP", "AP50", "AP75")}
+            on_card[name]["max_diff_to_cpu"] = diff
+        if on_card["ground_truth"]["mAP"] != 1.0:
+            raise AssertionError(f"the ground truth scores {on_card}")
+
+        # (e) the published model predicts what the checkpoint predicts
+        if f"published -> {npz}" not in said_pub:
+            raise AssertionError(f"the publish CLI said {said_pub!r}")
+        for a, b in zip(from_npz, from_ckpt):
+            if a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(
+                    "the published model and the checkpoint predict "
+                    "differently")
+        npz_bytes = os.path.getsize(npz)
+
+    on_nms_input = {"input": "train_coco: NMS candidates of the last val "
+                             "image of the test CLI",
+                    **check_kernel(KERNELS[0], nms_input, nms_input, reps,
+                                   identical=False)}
+    emit({"phase": "train_coco", "config": os.path.relpath(CONFIG, ROOT),
+          "pil_importable": pil, "dataset_write_seconds": write_seconds,
+          "train_images": COCO_TRAIN_IMAGES, "val_images": COCO_VAL_IMAGES,
+          "crowd_annotations": COCO_CROWD, "batch": TRAIN_BATCH,
+          "first_run_seconds": first_seconds,
+          "val_records": [{k: r[k] for k in ("step", "mAP", "AP50", "AP75")}
+                          for r in vals],
+          "test_cli": tested, "test_cli_ap50_diff": ap50_diff,
+          "kernel_launches": {"first_run": first_launches,
+                              "resumed_run": resumed_launches,
+                              "whole_phase": launches},
+          "nms_call_shapes": sorted({tuple(a) for a, _ in nms_calls}),
+          "evaluations": wf.evals, "checkpoint_saves": wf.saves,
+          "checkpoint_restore": restored,
+          "first_step_after_resume_ms": wf.first_step_ms,
+          "training_peak_memory_bytes": max(wf.train_peaks),
+          "evaluation_peak_memory_bytes": max(e["peak_memory_bytes"]
+                                              for e in wf.evals),
+          "map_card_vs_cpu": on_card, "published_npz_bytes": npz_bytes,
+          "published_equals_checkpoint": True,
+          "kernel_on_val_nms_input": on_nms_input})
+    return launches, on_nms_input
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2052,10 +2469,12 @@ def main(argv=None) -> int:
     phase_serve_families(args.seed)
     trained, on_frcnn_input = phase_train_frcnn(args.seed, args.reps)
     launches["sph2pob_iou_pairwise"] += trained
+    trained, on_val_nms_input = phase_train_coco(args.seed, args.reps)
+    launches["sph2pob_iou_pairwise"] += trained
     # K1 on the inputs its paths gave it, beside its seeded shapes
     shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input,
                                        on_iou_input, on_ssd_input,
-                                       *on_frcnn_input]
+                                       *on_frcnn_input, on_val_nms_input]
     idle = [k.name for k in KERNELS if launches[k.name] < 1]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

@@ -15,6 +15,7 @@ CPU.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Sequence
 
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from .data.pipeline import SphPipeline
+from .engine.runner import load_checkpoint
 from .engine.zoo import get_family
 from .models.from_flax import load_flax_variables
 from .utils.config import apply_overrides, load_config
@@ -50,9 +52,12 @@ def init_detector(config, checkpoint: str | None = None,
                   seed: int = 0, device=None) -> Detector:
     """Build a detector from a config (path or dict) + optional checkpoint.
 
-    ``checkpoint``: a published ``.npz`` (as the JAX package's
-    ``save_published`` writes it); ``None`` keeps the random initialisation
-    drawn from ``seed``. ``device``: ``None`` means the CUDA device.
+    ``checkpoint``: a published ``.npz`` (as either package's
+    ``save_published`` writes it), or a checkpoint of the trainer — its
+    directory (the newest checkpoint there) or one ``epoch_N`` file — whose
+    model weights are loaded (not the EMA shadow); ``None`` keeps the random
+    initialisation drawn from ``seed``. ``device``: ``None`` means the CUDA
+    device.
     """
     device = resolve_device(device)
     cfg = dict(config) if isinstance(config, dict) else load_config(config)
@@ -67,10 +72,13 @@ def init_detector(config, checkpoint: str | None = None,
     elif str(checkpoint).endswith(".npz"):
         params, batch_stats, _ = load_published(checkpoint)
         load_flax_variables(model, params, batch_stats)
+    elif os.path.isdir(checkpoint) or os.path.isfile(checkpoint):
+        load_checkpoint(checkpoint, model)
     else:
         raise NotImplementedError(
-            f"checkpoint {checkpoint!r}: only published .npz checkpoints "
-            "can be loaded by this package yet")
+            f"checkpoint {checkpoint!r}: neither a published .npz nor a "
+            "checkpoint of the trainer (a directory of epoch_N files, or one "
+            "of them)")
     model = model.to(device).eval()
 
     bv = cfg["model"].get("box_version", 4)

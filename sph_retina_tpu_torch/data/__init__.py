@@ -1,3 +1,4 @@
+from .coco_sph import INDOOR360_CLASSES, SphCocoDataset
 from .loader import (
     DataLoader,
     make_synthetic_dataset,
@@ -8,6 +9,8 @@ from .pipeline import SphPipeline, maybe_normalize_images
 
 __all__ = [
     "DataLoader",
+    "INDOOR360_CLASSES",
+    "SphCocoDataset",
     "SphPipeline",
     "make_synthetic_dataset",
     "maybe_normalize_images",

@@ -1,5 +1,6 @@
 """Build runtime objects from declarative config dicts:
-config dicts of ``configs/`` -> model, detector config, optimiser."""
+config dicts of ``configs/`` -> model, detector config, datasets and
+loaders, optimiser."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import torch
 from ..boxes.anchors import SphAnchorGenerator
 from ..boxes.assigner import MaxIoUAssigner
 from ..boxes.coders import SphBBoxCoder
+from ..data import DataLoader, SphCocoDataset, SphPipeline
 from ..losses import build_loss
 from ..models.single_stage import DetectorConfig, SphRetinaNet
 from .train import SGDOptimizer, build_optimizer, step_lr_schedule
@@ -85,6 +87,48 @@ def build_model(cfg: dict) -> SphRetinaNet:
         base_width=bb.get("base_width", 64),
         dtype=dtype,
     )
+
+
+def build_datasets(cfg: dict, split: str = "train", num_shards: int = 1,
+                   shard_id: int = 0):
+    """``(dataset, loader)`` of ``cfg["data"][split]``: the COCO-style
+    annotation file through the pipeline. Only ``train`` flips, shuffles and
+    drops the last partial batch. ``transfer_colorspace`` other than
+    ``"rgb"`` and ``num_shards > 1`` raise by name (the pipeline and the
+    loader say which)."""
+    d = cfg["data"][split]
+    box_version = cfg["model"].get("box_version", 4)
+    ds = SphCocoDataset(
+        ann_file=d["ann_file"],
+        img_prefix=d.get("img_prefix", ""),
+        box_version=box_version,
+    )
+    colorspace = cfg["data"].get("transfer_colorspace", "rgb")
+    if colorspace == "auto":
+        raise NotImplementedError(
+            "transfer_colorspace='auto' (the measured link-vs-host policy) "
+            "is not available in this package yet; use 'rgb'")
+    pipe = SphPipeline(
+        img_size=tuple(cfg.get("img_size", (512, 1024))),
+        flip_ratio=cfg["data"].get("flip_ratio", 0.5) if split == "train" else 0.0,
+        max_gt=cfg["data"].get("max_gt", 64),
+        box_version=box_version,
+        training=split == "train",
+        normalize_on_device=cfg["data"].get("normalize_on_device", False),
+        transfer_colorspace=colorspace,
+    )
+    loader = DataLoader(
+        ds, pipe,
+        batch_size=cfg["data"].get("samples_per_gpu", 4),
+        shuffle=split == "train",
+        num_workers=cfg["data"].get("workers_per_gpu", 4),
+        seed=cfg.get("seed", 0),
+        aug_seed=cfg.get("aug_seed", None),
+        drop_last=split == "train",
+        num_shards=num_shards,
+        shard_id=shard_id,
+    )
+    return ds, loader
 
 
 def scaled_base_lr(cfg: dict, num_processes: int = 1) -> float:

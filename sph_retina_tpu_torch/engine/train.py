@@ -144,6 +144,54 @@ class SGDOptimizer:
             return None
         return dict(zip(self._all_names, self.ema))
 
+    def state_dict(self) -> dict:
+        """The step count, the momentum buffers and the EMA shadow by
+        parameter name (the tensors themselves, not copies)."""
+        return {"count": self.count,
+                "momentum_buffers": dict(zip(self.names, self.bufs)),
+                "ema": self.ema_state_dict()}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a ``state_dict()`` into this optimiser's tensors. The names
+        must be the same, and EMA on in both or in neither."""
+        bufs = state["momentum_buffers"]
+        if list(bufs) != self.names:
+            raise KeyError(
+                "momentum buffers do not fit the model: missing "
+                f"{sorted(set(self.names) - set(bufs))[:8]}, unexpected "
+                f"{sorted(set(bufs) - set(self.names))[:8]}")
+        ema = state["ema"]
+        if (ema is None) != (self.ema is None):
+            raise ValueError(
+                f"the state {'has no' if ema is None else 'has an'} EMA "
+                f"shadow, the optimiser {'has' if ema is None else 'has none'}")
+        if ema is not None and list(ema) != self._all_names:
+            raise KeyError("the EMA shadow does not fit the model")
+        torch._foreach_copy_(self.bufs, [bufs[n] for n in self.names])
+        if ema is not None:
+            torch._foreach_copy_(self.ema, [ema[n] for n in self._all_names])
+        self.count = int(state["count"])
+
+
+def get_ema_params(optimizer: SGDOptimizer) -> dict | None:
+    """The EMA shadow parameters by name, or None."""
+    return optimizer.ema_state_dict()
+
+
+@torch.no_grad()
+def with_ema_params(model: nn.Module, optimizer: SGDOptimizer) -> nn.Module:
+    """Copy the EMA shadow into ``model``'s parameters, cast to each one's
+    dtype (evaluation with averaged weights, as mmcv's EMAHook does), and
+    return the model. Batch-norm statistics are left as they are; without an
+    EMA the model is returned unchanged."""
+    ema = get_ema_params(optimizer)
+    if ema is None:
+        return model
+    for name, p in model.named_parameters():
+        p.copy_(ema[name].to(p.dtype))
+    return model
+
 
 def build_optimizer(
     model: nn.Module,

@@ -277,7 +277,8 @@ def make_generic_train_step(family, model, cfg, optimizer: SGDOptimizer,
     a batch that lies on the model's device; the model and the optimiser are
     updated in place. The generator, seeded from ``seed``, is what a family
     that samples draws from (Faster R-CNN's RoI sampler); the single-stage
-    families draw nothing."""
+    families draw nothing. It is ``train_step.generator``, so that a
+    checkpoint can save and restore its state."""
     loss = family.loss_fn(model, cfg)
     device = next(model.parameters()).device
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -286,4 +287,5 @@ def make_generic_train_step(family, model, cfg, optimizer: SGDOptimizer,
         batch = dict(batch, images=maybe_normalize_images(batch["images"]))
         return run_step(optimizer, lambda: loss(batch, generator))
 
+    train_step.generator = generator
     return train_step

@@ -1,0 +1,108 @@
+"""Evaluate a trained spherical detector checkpoint.
+
+    python -m sph_retina_tpu_torch.test CONFIG CHECKPOINT [--eval bbox]
+
+``CHECKPOINT`` is a checkpoint directory (its newest checkpoint is taken, as
+``--auto-resume`` takes it) or one ``epoch_N`` file of the trainer. The
+config's ``data.test`` split is evaluated (``--synthetic``: 16 synthetic
+images) with COCO-style spherical AP; the float metrics are printed as JSON
+and written to ``--out``. ``--ema`` evaluates the EMA shadow weights of a
+checkpoint trained with them. Runs on the CUDA device unless ``--device
+cpu`` is given.
+
+Not available in this package yet, and raising ``NotImplementedError`` by
+name: ``--save-raw`` (the raw result arrays of the analysis tools) and
+``--launcher`` (multi-process evaluation).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from .data import DataLoader, SphPipeline, make_synthetic_dataset
+from .engine.builder import build_datasets, build_tx
+from .engine.evaluator import evaluate_dataset
+from .engine.runner import load_checkpoint
+from .engine.train import get_ema_params, with_ema_params
+from .engine.zoo import get_family
+from .utils.config import apply_overrides, load_config
+from .utils.device import resolve_device
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Evaluate a detector checkpoint")
+    p.add_argument("config")
+    p.add_argument("checkpoint",
+                   help="checkpoint directory or one epoch_N file")
+    p.add_argument("--eval", default="bbox", choices=["bbox"])
+    p.add_argument("--iou-backend", default="sph2pob_efficient",
+                   help="spherical IoU backend used for det-gt matching")
+    p.add_argument("--out", default=None, help="write results JSON here")
+    p.add_argument("--save-raw", default=None, metavar="NPZ")
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--ema", action="store_true",
+                   help="evaluate with the EMA shadow weights")
+    p.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                   help="default: the CUDA device; cpu for smoke tests")
+    p.add_argument("--launcher", default="none", choices=["none", "torch"])
+    p.add_argument("--cfg-options", nargs="*", default=None)
+    return p.parse_args(argv)
+
+
+def eval_loader(cfg: dict, synthetic: bool):
+    if not synthetic:
+        return build_datasets(cfg, "test")[1]
+    img_size = tuple(cfg.get("img_size", (512, 1024)))
+    box_version = cfg["model"].get("box_version", 4)
+    ds = make_synthetic_dataset(
+        n_images=16, num_classes=cfg["model"]["num_classes"],
+        img_size=img_size, box_version=box_version)
+    pipe = SphPipeline(img_size=img_size, training=False,
+                       box_version=box_version)
+    return DataLoader(ds, pipe, batch_size=4, shuffle=False, drop_last=False)
+
+
+def load_for_eval(cfg: dict, checkpoint: str, device, ema: bool = False):
+    """(model, detector config, step) of a checkpoint, on ``device``; with
+    ``ema`` the EMA shadow weights (exits where the checkpoint has none)."""
+    model, det_cfg = get_family(cfg).build(cfg)
+    model = model.to(device)
+    optimizer = build_tx(cfg, model, steps_per_epoch=1)
+    step = load_checkpoint(checkpoint, model, optimizer)
+    if ema:
+        if get_ema_params(optimizer) is None:
+            raise SystemExit("--ema: checkpoint has no EMA state "
+                             "(train with ema_momentum / EMAHook)")
+        with_ema_params(model, optimizer)
+    return model, det_cfg, step
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if args.save_raw:
+        raise NotImplementedError(
+            "--save-raw is not available in this package yet")
+    if args.launcher != "none":
+        raise NotImplementedError(
+            f"--launcher {args.launcher} is not available in this package yet")
+    device = resolve_device(args.device)
+    cfg = apply_overrides(load_config(args.config), args.cfg_options)
+    loader = eval_loader(cfg, args.synthetic)
+    model, det_cfg, step = load_for_eval(cfg, args.checkpoint, device,
+                                         args.ema)
+    print(f"loaded checkpoint at step {step}")
+    results = evaluate_dataset(
+        model, det_cfg, loader, backend=args.iou_backend,
+        predict=get_family(cfg).predict_fn(model, det_cfg))
+    summary = {k: v for k, v in results.items() if isinstance(v, float)}
+    print(json.dumps(summary, indent=2))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(summary, f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

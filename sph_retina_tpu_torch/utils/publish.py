@@ -1,16 +1,30 @@
-"""Reads publishable single-file inference checkpoints.
+"""Publishable single-file inference checkpoints.
 
 A *published* checkpoint is one compressed ``.npz`` holding only params +
-batch_stats (flattened, '/'-joined keys under ``params/`` and
-``batch_stats/``) plus a small JSON meta record under ``__meta__`` — the
-file the JAX package's ``save_published`` writes. numpy only.
+batch_stats in the Flax layout (flattened, '/'-joined keys under
+``params/`` and ``batch_stats/``) plus a small JSON meta record under
+``__meta__``, its file name suffixed with a hash of its content — the file
+the JAX package's ``save_published`` writes and its ``load_published``
+reads, so that either package loads what the other published. numpy only.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import os
 
 import numpy as np
+
+
+def _flatten(tree: dict, prefix: str) -> dict:
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_flatten(val, f"{prefix}{key}/"))
+        else:
+            out[prefix + str(key)] = np.asarray(val)
+    return out
 
 
 def _unflatten(flat: dict, prefix: str) -> dict:
@@ -24,6 +38,28 @@ def _unflatten(flat: dict, prefix: str) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = val
     return tree
+
+
+def save_published(path: str, params: dict, batch_stats: dict | None = None,
+                   meta: dict | None = None) -> str:
+    """Write the published npz of nested ``params`` / ``batch_stats`` dicts
+    of arrays (``models.from_flax.to_flax`` of a ``state_dict``); returns
+    the final path, ``<path without .npz>-<first 8 hex of sha256>.npz``."""
+    flat = _flatten(params, "params/")
+    if batch_stats:
+        flat.update(_flatten(batch_stats, "batch_stats/"))
+    flat["__meta__"] = np.frombuffer(
+        json.dumps(meta or {}).encode(), np.uint8)
+    # savez_compressed appends ".npz" to a suffix-less path; normalise first
+    # so that the hash and the rename below see the file actually written
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    np.savez_compressed(path, **flat)
+    with open(path, "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    final = f"{path[:-4]}-{sha[:8]}.npz"
+    os.replace(path, final)
+    return final
 
 
 def load_published(path: str) -> tuple:

@@ -39,6 +39,7 @@ from sph_retina_tpu.engine import train as jtrain
 from sph_retina_tpu.losses import sph_l1_loss as jax_l1
 from sph_retina_tpu.models import SphRetinaNet as FlaxRetinaNet
 from sph_retina_tpu.models import single_stage as jss
+from sph_retina_tpu_torch import test as test_cli
 from sph_retina_tpu_torch import train as train_cli
 from sph_retina_tpu_torch.data import (
     DataLoader,
@@ -417,21 +418,28 @@ def test_trainer_cli_writes_finite_metrics(tmp_path, monkeypatch, capsys):
     assert records[-1]["prefix"] == "epoch" and records[-1]["epoch"] == 0
 
 
-@pytest.mark.parametrize("argv, match", [
-    ([CONFIG, "--synthetic", "--device", "cpu", "--resume-from", "x"],
-     "--resume-from"),
-    ([CONFIG, "--synthetic", "--device", "cpu", "--load-backbone", "x"],
+@pytest.mark.parametrize("cli, argv, match", [
+    # resuming works now; a resumed run across processes still refuses
+    (train_cli, [CONFIG, "--synthetic", "--device", "cpu", "--resume-from",
+                 "x", "--launcher", "torch"], "--launcher"),
+    (train_cli, [CONFIG, "--synthetic", "--device", "cpu", "--load-backbone",
+                 "x"], "--load-backbone"),
+    (train_cli, [CONFIG, "--synthetic", "--device", "cpu", "--launcher",
+                 "torch"], "--launcher"),
+    # training on the config's annotation files works now; with a backbone
+    # to load it still refuses, before reading them
+    (train_cli, [CONFIG, "--device", "cpu", "--load-backbone", "x"],
      "--load-backbone"),
-    ([CONFIG, "--synthetic", "--device", "cpu", "--launcher", "torch"],
-     "--launcher"),
-    ([CONFIG, "--device", "cpu"], "--synthetic"),
-    ([CONFIG, "--synthetic", "--device", "cpu", "--auto-resume"],
-     "--auto-resume"),
+    # the evaluation CLI's raw results for the analysis tools
+    (test_cli, [CONFIG, "x", "--device", "cpu", "--save-raw", "raw.npz"],
+     "--save-raw"),
 ], ids=["resume", "load_backbone", "launcher", "annotation_file",
         "iou_loss_of_the_config"])
-def test_trainer_cli_refuses_by_name(argv, match, tmp_path):
+def test_trainer_cli_refuses_by_name(cli, argv, match, tmp_path):
+    if cli is train_cli:
+        argv = argv + ["--work-dir", str(tmp_path)]
     with pytest.raises(NotImplementedError, match=match):
-        train_cli.main(argv + ["--work-dir", str(tmp_path)])
+        cli.main(argv)
 
 
 def test_trainer_cli_raises_without_a_card(tmp_path):
@@ -457,7 +465,7 @@ def test_run_training_raises_on_a_nan_loss(tmp_path, monkeypatch):
                 train_step=lambda b: {"loss": torch.tensor(next(losses))},
                 optimizer=Counter(), loader=loader, max_epochs=1,
                 logger=logger)
-        with pytest.raises(NotImplementedError, match="checkpointer"):
+        with pytest.raises(ValueError, match="checkpointer needs the model"):
             run_training(train_step=None, optimizer=Counter(), loader=loader,
                          max_epochs=1, logger=logger, checkpointer=object())
     finally:
