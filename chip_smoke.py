@@ -17,7 +17,9 @@ the server; the trainer on the shipped SSD-VGG16, Kent-KLD, 5-dof Kent and
 FCOS-R50 configs and one ``inference_detector`` request each to the FCOS, SSD
 and Kent-KLD configs; the trainer on three Faster R-CNN configs (R50
 indoor360 with the random and the OHEM RoI sampler, R18 Sphere-bench) and
-one request to the soft-NMS one; and the IoU tool (``benchmark_iou.main``,
+one request to the soft-NMS one; the training workflow on a COCO-style set;
+the export of the rotated config and the deployment evaluation of its
+artifact; and the IoU tool (``benchmark_iou.main``,
 the kernel and the other backends) — and holds every CUDA kernel of those
 paths against its plain PyTorch version on the card.
 
@@ -71,7 +73,18 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             step of the OHEM leaf, two of the R18 Sphere-bench leaf; one
             request to the soft-NMS leaf (scores decayed, boxes kept that
             hard NMS removes)
-14. the kernels' summary line, then the last line
+14. train_coco  the training workflow on a COCO-style set it writes: two
+            epochs with an evaluation and a checkpoint each, a resume, the
+            test CLI, publishing
+15. export  the rotated config exported at batch 1 (``torch.export``; the
+            seconds of export, save and load, the artifact's bytes), the
+            artifact against the live predict on 3 images (labels, validity,
+            indices equal; boxes, scores within 1e-5), one K1 launch an
+            image from the artifact, its ms an image beside the live
+            predict's; ``deployment_test.main`` on the artifact over 8 val
+            images against ``evaluate_dataset`` (metrics within 1e-3); the
+            custom op's dispatch cost a K1 call
+16. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
 Weights are random, made from ``--seed``; no number printed here says
@@ -106,12 +119,15 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from sph_retina_tpu_torch import benchmark_iou
+from sph_retina_tpu_torch import deployment_test as deployment_cli
+from sph_retina_tpu_torch import export as export_cli
 from sph_retina_tpu_torch import publish as publish_cli
 from sph_retina_tpu_torch import test as test_cli
 from sph_retina_tpu_torch import train as train_cli
 from sph_retina_tpu_torch.apis import inference_detector, init_detector
 from sph_retina_tpu_torch.boxes import nms as nms_module
 from sph_retina_tpu_torch.engine import evaluator, runner
+from sph_retina_tpu_torch.engine.builder import build_datasets
 from sph_retina_tpu_torch.engine.eval import eval_spherical_map
 from sph_retina_tpu_torch.data import SphCocoDataset, to_device
 from sph_retina_tpu_torch.data.pipeline import maybe_normalize_images
@@ -2425,6 +2441,210 @@ def phase_train_coco(seed: int, reps: int) -> tuple[int, dict]:
     return launches, on_nms_input
 
 
+# --------------------------------------------------------------------------- #
+# export and deployment evaluation
+# --------------------------------------------------------------------------- #
+EXPORT_IMAGES = 3
+EXPORT_TOLERANCE = 1e-5  # the JAX package's export test: rtol = atol = 1e-5
+DEPLOY_TOLERANCE = 1e-3  # its deployment test, on the metrics
+DISPATCH_CALLS = 2000
+
+
+def host_ms(fn, reps: int) -> list:
+    """Milliseconds of each of ``reps`` calls of ``fn`` on the host's
+    clock, each from a synchronised card to a synchronised card."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def dispatch_overhead(seed: int) -> dict:
+    """What the custom op adds to a K1 call: host microseconds a call at
+    (1000, 1000) D=5 through the op, through the public wrapper (argument
+    checks, then the op), through the op's CUDA kernel called as a plain
+    function (allocation, stream, launch: the wrapper's body before the op)
+    and through the ``ctypes`` launcher directly into a preallocated output,
+    ``DISPATCH_CALLS`` calls back to back and one synchronisation, in turns
+    (direct, impl, op, wrapper, wrapper, op, impl, direct)."""
+    from sph_retina_tpu_torch.ops import sph2pob_iou as k1_module
+
+    b1, b2 = (torch.from_numpy(b).cuda()
+              for b in pairwise_inputs(SERVING_SHAPE, seed))
+    n, m, d = SERVING_SHAPE
+    out = torch.empty((n, m), dtype=torch.float32, device="cuda")
+    launch = k1_module._pairwise_launcher()
+
+    def direct():
+        if launch(b1.data_ptr(), b2.data_ptr(), out.data_ptr(), n, m, d,
+                  torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("the direct launch failed")
+
+    calls = {"direct": direct,
+             "impl": lambda: k1_module._pairwise_cuda(b1, b2),
+             "op": lambda: torch.ops.sph_retina.sph2pob_iou_pairwise(b1, b2),
+             "wrapper": lambda: sph2pob_iou_pairwise(b1, b2)}
+    us = {name: [] for name in calls}
+    for name in ("direct", "impl", "op", "wrapper", "wrapper", "op", "impl",
+                 "direct"):
+        for _ in range(10):
+            calls[name]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            calls[name]()
+        torch.cuda.synchronize()
+        us[name].append((time.perf_counter() - t0) * 1e6 / DISPATCH_CALLS)
+    if not torch.equal(out, calls["op"]()):
+        raise AssertionError("the op and the direct launch differ")
+    return {"shape": list(SERVING_SHAPE), "calls": DISPATCH_CALLS,
+            "host_us_a_call": us,
+            "op_over_impl_us": min(us["op"]) - min(us["impl"]),
+            "op_over_direct_us": min(us["op"]) - min(us["direct"]),
+            "wrapper_over_direct_us": min(us["wrapper"]) - min(us["direct"])}
+
+
+def phase_export(seed: int, reps: int) -> int:
+    """The rotated R50 config at full width, seeded and calibrated as in
+    phase ``serve``, exported at batch 1 (``export_program``,
+    ``save_program``, ``load_exported``, each timed); the artifact against
+    the live predict on ``EXPORT_IMAGES`` images (labels, validity and
+    indices equal, boxes and scores within ``EXPORT_TOLERANCE``), K1
+    launched once an image by the artifact, one profiled call, ms an image
+    beside the live predict's; then ``deployment_test.main`` on the artifact
+    over the 8 val images ``write_coco`` writes, against ``evaluate_dataset``
+    with the live predict (metrics within ``DEPLOY_TOLERANCE``), and the
+    custom op's dispatch cost. Returns K1's launches by the artifact."""
+    torch.backends.cudnn.deterministic = True
+    det = init_detector(CONFIG, seed=seed)
+    det.model.load_state_dict(seeded_state_dict(det.model, seed))
+    det.model.to(det.device)
+    rng = np.random.default_rng(seed)
+    h, w = det.cfg["img_size"]
+    raw = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+           for _ in range(EXPORT_IMAGES)]
+    calibrate_head(det, raw[0])
+    assert_full_width(det)
+    # the artifact's input: float32 (1, H, W, 3), normalised
+    images = [maybe_normalize_images(torch.from_numpy(r[None]).to(det.device))
+              for r in raw]
+
+    t0 = time.perf_counter()
+    program = export_cli.export_program(det, batch_size=1)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blob = export_cli.save_program(program)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    call = export_cli.load_exported(blob)
+    load_s = time.perf_counter() - t0
+    nodes = [str(n.target) for n in call.program.graph.nodes]
+    if nodes.count("sph_retina.sph2pob_iou_pairwise.default") != 1:
+        raise AssertionError("the exported graph holds no K1 node")
+
+    sph2pob_iou_pairwise.launches = 0
+    got = [call(x) for x in images]
+    torch.cuda.synchronize()
+    artifact_launches = sph2pob_iou_pairwise.launches
+    if artifact_launches != EXPORT_IMAGES:
+        raise AssertionError(f"{artifact_launches} K1 launches over "
+                             f"{EXPORT_IMAGES} images of the artifact")
+    live = [det.predict(x) for x in images]
+    diffs = {}
+    for g, l in zip(got, live):
+        for name, a, b in zip(l._fields, g, l):
+            diff = float((a.double() - b.double()).abs().max())
+            diffs[name] = max(diffs.get(name, 0.0), diff)
+            if name in ("labels", "valid", "inds"):
+                ok = torch.equal(a, b)
+            else:
+                ok = torch.allclose(a, b, rtol=EXPORT_TOLERANCE,
+                                    atol=EXPORT_TOLERANCE)
+            if not ok:
+                raise AssertionError(f"the artifact's {name} differ from the "
+                                     f"live predict's by {diff}")
+    bitwise = all(torch.equal(a, b) for g, l in zip(got, live)
+                  for a, b in zip(g, l))
+    n_det = [int(l.valid.sum()) for l in live]
+
+    prof = profiled(lambda: call(images[-1]))
+    n_prof = prof["launches_by_kernel"].get("sph2pob_iou_pairwise", 0)
+    k1_device_ms = prof["ms_by_kernel"]["sph2pob_iou_pairwise"] / n_prof \
+        if n_prof else None
+    timing = {"live": [], "artifact": []}
+    for name in ("live", "artifact", "artifact", "live"):
+        fn = det.predict if name == "live" else call
+        timing[name] += host_ms(lambda: fn(images[-1]), reps // 2)
+
+    # deployment evaluation over the val set of phase train_coco
+    classes = det.num_classes
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        val_ann, val_dir = write_coco(tmp, "val", COCO_VAL_IMAGES, classes,
+                                      (h, w), seed + 1, COCO_CROWD)
+        path = os.path.join(tmp, "model.pt2")
+        with open(path, "wb") as f:
+            f.write(blob)
+        data = [f"data.test.ann_file={val_ann}",
+                f"data.test.img_prefix={val_dir}"]
+        out_json = os.path.join(tmp, "res.json")
+        sph2pob_iou_pairwise.launches = 0
+        t0 = time.perf_counter()
+        _said(lambda: deployment_cli.main([CONFIG, path, "--out", out_json,
+                                           "--cfg-options", *data]))
+        deploy_s = time.perf_counter() - t0
+        deploy_launches = sph2pob_iou_pairwise.launches
+        with open(out_json) as f:
+            deployed = json.load(f)
+        cfg = apply_overrides(load_config(CONFIG), data)
+        cfg["data"]["samples_per_gpu"] = 1
+        t0 = time.perf_counter()
+        expected, raw = evaluator.evaluate_dataset(
+            det.model, det.det_cfg, build_datasets(cfg, "test")[1],
+            predict=det.predict, return_raw=True)
+        live_s = time.perf_counter() - t0
+    if deploy_launches != COCO_VAL_IMAGES:
+        raise AssertionError(f"{deploy_launches} K1 launches over "
+                             f"{COCO_VAL_IMAGES} val images")
+    metric_diff = {k: abs(deployed[k] - v) for k, v in expected.items()
+                   if isinstance(v, float) and math.isfinite(v)}
+    if set(metric_diff) != set(deployed) or \
+            not max(metric_diff.values()) <= DEPLOY_TOLERANCE:
+        raise AssertionError(f"deployment metrics {deployed} against the "
+                             f"in-framework evaluation's {expected}")
+    emit({"phase": "export", "config": os.path.relpath(CONFIG, ROOT),
+          "batch_size": 1, "artifact_bytes": len(blob),
+          "export_seconds": export_s, "save_seconds": save_s,
+          "load_seconds": load_s, "graph_nodes": len(nodes),
+          "graph_dtype_checks": sum("_assert_tensor_metadata" in t
+                                    for t in nodes),
+          "images": EXPORT_IMAGES,
+          "detections": n_det, "max_abs_diff_to_live": diffs,
+          "bitwise_equal_to_live": bitwise, "tolerance": EXPORT_TOLERANCE,
+          "kernel_launches": {"artifact_calls": artifact_launches,
+                              "deployment_test": deploy_launches},
+          "k1_device_ms_in_artifact_call": k1_device_ms,
+          "artifact_call_profile": {k: prof[k] for k in (
+              "wall_ms", "device_ms", "device_idle_share",
+              "kernel_launches")},
+          "host_ms_an_image": {k: statistics.median(v)
+                               for k, v in timing.items()},
+          "host_ms_all": timing,
+          "deployment_test": {"metrics": deployed, "seconds": deploy_s,
+                              "val_images": COCO_VAL_IMAGES,
+                              "detections": int(raw["valid"].sum())},
+          "in_framework": {"metrics": {k: v for k, v in expected.items()
+                                       if isinstance(v, float)},
+                           "seconds": live_s},
+          "metric_max_diff": max(metric_diff.values()),
+          "dispatch": dispatch_overhead(seed)})
+    return artifact_launches + deploy_launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2471,6 +2691,7 @@ def main(argv=None) -> int:
     launches["sph2pob_iou_pairwise"] += trained
     trained, on_val_nms_input = phase_train_coco(args.seed, args.reps)
     launches["sph2pob_iou_pairwise"] += trained
+    launches["sph2pob_iou_pairwise"] += phase_export(args.seed, args.reps)
     # K1 on the inputs its paths gave it, beside its seeded shapes
     shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input,
                                        on_iou_input, on_ssd_input,

@@ -19,7 +19,12 @@ detector family (RetinaNet, FCOS, SSD-VGG16, Faster R-CNN):
   transforms, the unbiased oracle, Sph-IoU, FoV-IoU, the chart IoU, the Kent
   KLD surrogate), in plain differentiable PyTorch;
 - the IoU tool: ``python -m sph_retina_tpu_torch.benchmark_iou`` (the aligned
-  kernel against its plain version, the backends against the oracle).
+  kernel against its plain version, the backends against the oracle);
+- export: ``export_predict`` / ``load_exported`` (``export.py``, one
+  ``torch.export`` artifact of the whole predict path), the CLIs
+  ``python -m sph_retina_tpu_torch.export_model`` and
+  ``python -m sph_retina_tpu_torch.deployment_test`` (an artifact scored
+  over a dataset).
 
 Box conventions, degrees at the boundary, as in the JAX package:
 
@@ -32,3 +37,13 @@ of ``sph_retina_tpu``.
 """
 
 __version__ = "0.1.0"
+__all__ = ["export_predict", "load_exported"]
+
+
+def __getattr__(name):
+    # PEP 562: importing the package stays light; the names load on use
+    if name in __all__:
+        from . import export
+
+        return getattr(export, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

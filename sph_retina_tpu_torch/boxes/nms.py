@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch._higher_order_ops.while_loop import while_loop_op
 
 from ..iou.api import canonical_backend, sph_overlaps
 from ..iou.rotated import rotated_box_iou
@@ -63,17 +64,30 @@ def _greedy_suppress(iou: torch.Tensor, valid: torch.Tensor,
     ``keep = valid`` settles the first undecided box every sweep, so it
     reaches that fixpoint in at most chain-depth sweeps — a handful in
     practice — each one (k, k) masked reduction. A k-step sequential scan
-    would be k tiny kernels in a row; the price of this form is one
-    host-device synchronisation a sweep, to see whether anything changed.
+    would be k tiny kernels in a row.
+
+    The loop is the ``while_loop`` higher-order op, carrying ``(keep, prev,
+    it)`` with the JAX package's condition ``any(keep != prev) & (it <=
+    k)``, so that ``torch.export`` keeps it as one loop node. Eagerly the op
+    reads its condition back once a sweep; the first sweep runs before the
+    loop, so that is one read-back a sweep, as many as sweeps.
     """
     k = iou.shape[0]
     dom = (iou > thr).triu(diagonal=1)  # row j can kill column i > j
-    keep = valid
-    for _ in range(k + 1):
-        new = valid & ~(dom & keep[:, None]).any(dim=0)
-        if torch.equal(new, keep):
-            break
-        keep = new
+
+    def sweep(keep, dom, valid):
+        return valid & ~(dom & keep[:, None]).any(dim=0)
+
+    def cond(keep, prev, it, dom, valid):
+        return (keep != prev).any() & (it <= k)
+
+    def body(keep, prev, it, dom, valid):
+        # carried outputs may not alias the inputs: prev is a copy
+        return sweep(keep, dom, valid), keep.clone(), it + 1
+
+    one = torch.ones((), dtype=torch.int64, device=iou.device)
+    keep, _, _ = while_loop_op(cond, body, (sweep(valid, dom, valid), valid,
+                                            one), (dom, valid))
     return keep
 
 

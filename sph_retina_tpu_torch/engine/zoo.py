@@ -1,8 +1,11 @@
 """Detector zoo: one uniform interface over the model families.
 
 A family adapter exposes ``build(cfg_dict) -> (module, detector config)``,
-``loss_fn(model, cfg) -> f(batch, generator) -> (total, dict)`` and
-``predict_fn(model, cfg) -> f(images) -> NMSResult``;
+``loss_fn(model, cfg) -> f(batch, generator) -> (total, dict)``,
+``predict_module(model, cfg) -> PredictModule`` (the predict path as one
+module, what ``export.py`` exports) and ``predict_fn(model, cfg) ->
+f(images) -> NMSResult`` (that module on the model's device, without
+gradients);
 ``make_generic_train_step`` serves every family: RetinaNet, FCOS, SSD and
 the two-stage Faster R-CNN, whose loss draws its RoI sample from the
 generator.
@@ -10,8 +13,12 @@ generator.
 
 from __future__ import annotations
 
-import torch
+from typing import Callable, Sequence
 
+import torch
+from torch import nn
+
+from ..boxes.nms import NMSResult
 from ..data.pipeline import maybe_normalize_images
 from ..models import faster_rcnn as frcnn
 from ..models.fcos import SphFCOS, fcos_config, fcos_loss, fcos_predict
@@ -52,7 +59,49 @@ def _device_of(model):
     return next(model.parameters()).device
 
 
-class RetinaNetFamily:
+class PredictModule(nn.Module):
+    """A family's predict path as one module: ``forward(images)`` with
+    images (B, H, W, 3), float (normalised) or uint8 (normalised here),
+    returns the plain tuple ``(boxes, scores, labels, inds, valid)``, each
+    with a leading (B,) axis, as the JAX package's exported ``serve`` does.
+    The network is the submodule ``model``; the anchors or points of each
+    level are the buffers ``prior0``, ``prior1``, ..., so that an exported
+    program carries them with the weights."""
+
+    def __init__(self, model: nn.Module, cfg, priors: Sequence[torch.Tensor],
+                 head: Callable):
+        super().__init__()
+        self.model = model
+        self.cfg = cfg
+        self.head = head
+        self.num_levels = len(priors)
+        for i, p in enumerate(priors):
+            self.register_buffer(f"prior{i}", p)
+
+    def forward(self, images: torch.Tensor):
+        priors = [getattr(self, f"prior{i}") for i in range(self.num_levels)]
+        return tuple(self.head(self.model, self.cfg,
+                               maybe_normalize_images(images), priors))
+
+
+class _Family:
+    @classmethod
+    def predict_module(cls, model, cfg) -> PredictModule:
+        return PredictModule(model, cfg, cls.priors(model, cfg), cls.head)
+
+    @classmethod
+    def predict_fn(cls, model, cfg):
+        module = cls.predict_module(model, cfg)
+        device = _device_of(model)
+
+        @torch.no_grad()
+        def f(images):
+            return NMSResult(*module(images.to(device)))
+
+        return f
+
+
+class RetinaNetFamily(_Family):
     name = "SphRetinaNet"
 
     @staticmethod
@@ -75,21 +124,17 @@ class RetinaNetFamily:
         return f
 
     @staticmethod
-    def predict_fn(model, cfg):
-        device = _device_of(model)
-        level_anchors = cfg.anchor_generator.grid_anchors(
-            cfg.featmap_sizes(), device)
+    def priors(model, cfg):
+        return cfg.anchor_generator.grid_anchors(cfg.featmap_sizes(),
+                                                 _device_of(model))
 
-        @torch.no_grad()
-        def f(images):
-            images = maybe_normalize_images(images.to(device))
-            cls, reg = model(images)
-            return retina_predict(cfg, cls, reg, level_anchors)
-
-        return f
+    @staticmethod
+    def head(model, cfg, images, level_anchors):
+        cls, reg = model(images)
+        return retina_predict(cfg, cls, reg, level_anchors)
 
 
-class FCOSFamily:
+class FCOSFamily(_Family):
     name = "SphFCOS"
 
     @staticmethod
@@ -120,20 +165,16 @@ class FCOSFamily:
         return f
 
     @staticmethod
-    def predict_fn(model, cfg):
-        device = _device_of(model)
-        level_points = cfg.level_points(device)
+    def priors(model, cfg):
+        return cfg.level_points(_device_of(model))[0]
 
-        @torch.no_grad()
-        def f(images):
-            images = maybe_normalize_images(images.to(device))
-            cls, reg, ctr = model(images)
-            return fcos_predict(cfg, cls, reg, ctr, level_points)
-
-        return f
+    @staticmethod
+    def head(model, cfg, images, points):
+        cls, reg, ctr = model(images)
+        return fcos_predict(cfg, cls, reg, ctr, (points,))
 
 
-class SSDFamily:
+class SSDFamily(_Family):
     name = "SphSSD"
 
     @staticmethod
@@ -161,20 +202,16 @@ class SSDFamily:
         return f
 
     @staticmethod
-    def predict_fn(model, cfg):
-        device = _device_of(model)
-        level_anchors = cfg.level_anchors(device)
+    def priors(model, cfg):
+        return cfg.level_anchors(_device_of(model))
 
-        @torch.no_grad()
-        def f(images):
-            images = maybe_normalize_images(images.to(device))
-            cls, reg = model(images)
-            return ssd_predict(cfg, cls, reg, level_anchors)
-
-        return f
+    @staticmethod
+    def head(model, cfg, images, level_anchors):
+        cls, reg = model(images)
+        return ssd_predict(cfg, cls, reg, level_anchors)
 
 
-class FasterRCNNFamily:
+class FasterRCNNFamily(_Family):
     name = "SphFasterRCNN"
 
     @staticmethod
@@ -232,23 +269,19 @@ class FasterRCNNFamily:
         return f
 
     @staticmethod
-    def predict_fn(model, cfg):
-        device = _device_of(model)
-        level_anchors = cfg.level_anchors(device)
+    def priors(model, cfg):
+        return cfg.level_anchors(_device_of(model))
 
-        @torch.no_grad()
-        def f(images):
-            images = maybe_normalize_images(images.to(device))
-            (rpn_cls, rpn_reg), feats = model(images)
-            props, _, pvalid = frcnn.rpn_proposals(cfg, rpn_cls, rpn_reg,
-                                                   level_anchors)
-            rf = frcnn.roi_features(cfg, feats, props)
-            cls, reg = model.roi(rf.flatten(0, 1))
-            b, p = props.shape[:2]
-            return frcnn.rcnn_predict(cfg, cls.reshape(b, p, -1),
-                                      reg.reshape(b, p, -1), props, pvalid)
-
-        return f
+    @staticmethod
+    def head(model, cfg, images, level_anchors):
+        (rpn_cls, rpn_reg), feats = model(images)
+        props, _, pvalid = frcnn.rpn_proposals(cfg, rpn_cls, rpn_reg,
+                                               level_anchors)
+        rf = frcnn.roi_features(cfg, feats, props)
+        cls, reg = model.roi(rf.flatten(0, 1))
+        b, p = props.shape[:2]
+        return frcnn.rcnn_predict(cfg, cls.reshape(b, p, -1),
+                                  reg.reshape(b, p, -1), props, pvalid)
 
 
 FAMILIES = {
