@@ -19,7 +19,9 @@ and Kent-KLD configs; the trainer on three Faster R-CNN configs (R50
 indoor360 with the random and the OHEM RoI sampler, R18 Sphere-bench) and
 one request to the soft-NMS one; the training workflow on a COCO-style set;
 the export of the rotated config and the deployment evaluation of its
-artifact; and the IoU tool (``benchmark_iou.main``,
+artifact; the production input path (native decoder or PIL, packed-I420
+transfer, the ``auto`` policy, copies on a stream of their own, the
+evaluation's OOM ladder) on 960x1920 panoramas; and the IoU tool (``benchmark_iou.main``,
 the kernel and the other backends) — and holds every CUDA kernel of those
 paths against its plain PyTorch version on the card.
 
@@ -84,7 +86,21 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             predict's; ``deployment_test.main`` on the artifact over 8 val
             images against ``evaluate_dataset`` (metrics within 1e-3); the
             custom op's dispatch cost a K1 call
-16. the kernels' summary line, then the last line
+16. train_input  the production input path: the rotated config trains 4
+            steps with one evaluation of 4 images on 960x1920 panoramas
+            (JPEGs and one PNG) it writes, through ``train.main``, four
+            times: ``rgb`` with the native decoder (PIL where it cannot be
+            built: ``native_decoder`` line, the compiler's reason), ``rgb``
+            with PIL, ``yuv420``, ``auto``; per run the loader's images a
+            second, a batch's bytes and H2D ms, step ms, a profiled
+            two-step window's busy share and streams, the evaluation's s,
+            the ``auto`` probes. Gates: every image of a native run read by
+            the decoder; K1 once a step and once a val image; the I420
+            batch within the JAX test's bound of the RGB batch on the card;
+            the card's conversion within 1e-4 of the CPU's; the image
+            batches' copies on another stream than the compute stream; an
+            injected OOM climbing ``AvoidOOM``'s gc and bf16 rungs
+17. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
 Weights are random, made from ``--seed``; no number printed here says
@@ -129,8 +145,19 @@ from sph_retina_tpu_torch.boxes import nms as nms_module
 from sph_retina_tpu_torch.engine import evaluator, runner
 from sph_retina_tpu_torch.engine.builder import build_datasets
 from sph_retina_tpu_torch.engine.eval import eval_spherical_map
-from sph_retina_tpu_torch.data import SphCocoDataset, to_device
-from sph_retina_tpu_torch.data.pipeline import maybe_normalize_images
+from sph_retina_tpu_torch.data import (
+    PinnedStaging,
+    SphCocoDataset,
+    SphPipeline,
+    native_loader,
+    policy,
+    prefetch_to_device,
+    to_device,
+)
+from sph_retina_tpu_torch.data.pipeline import (
+    IMAGENET_STD,
+    maybe_normalize_images,
+)
 from sph_retina_tpu_torch.losses import (
     sph2pob_iou_loss,
     sph_kent_loss,
@@ -2645,6 +2672,452 @@ def phase_export(seed: int, reps: int) -> int:
     return artifact_launches + deploy_launches
 
 
+# --------------------------------------------------------------------------- #
+# the production input path
+# --------------------------------------------------------------------------- #
+INPUT_SIZE = (960, 1920)  # the panoramas PANDORA ships; the decoder resizes
+INPUT_TRAIN_IMAGES = 16   # 4 steps at batch 4
+INPUT_VAL_IMAGES = 4      # one evaluation, one K1 launch an image
+INPUT_JPEG_QUALITY = 90
+INPUT_BOX_BLUR = 6        # px at 1920 wide: smooth chroma (see write_panoramas)
+# (name, transfer_colorspace, native decoder on)
+INPUT_MODES = (("rgb_native", "rgb", True), ("rgb_pil", "rgb", False),
+               ("yuv420", "yuv420", True), ("auto", "auto", True))
+I420_BOUND = (1.5, 16.0)  # mean, max pixel error: tests/test_data_eval.py:431
+CONVERSION_TOLERANCE = 1e-4  # the card's I420 conversion against the CPU's
+
+
+def write_panoramas(root: str, split: str, n_images: int, num_classes: int,
+                    seed: int) -> tuple[str, str]:
+    """A COCO-style set of ``INPUT_SIZE`` panoramas with ``write_coco``'s
+    boxes: smooth colour gradients (seeded phases) with each box painted at
+    its equirectangular footprint and the whole blurred by
+    ``INPUT_BOX_BLUR`` px, so that the chroma is band-limited as in the
+    smooth content the JAX package's I420 bound is stated for; the first
+    image a PNG, the rest JPEGs at ``INPUT_JPEG_QUALITY``. Returns
+    (annotation file, image directory)."""
+    from PIL import Image, ImageFilter
+
+    h, w = INPUT_SIZE
+    img_dir = os.path.join(root, split)
+    os.makedirs(img_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    images, annotations = [], []
+    for img_id in range(1, n_images + 1):
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        canvas = np.stack([
+            127 + 100 * np.sin(2 * np.pi * xx / w + phase[0]),
+            127 + 100 * np.sin(2 * np.pi * yy / h + phase[1]),
+            127 + 100 * np.sin(2 * np.pi * (xx / w + yy / h) + phase[2]),
+        ], -1).astype(np.uint8)
+        for _ in range(int(rng.integers(1, 7))):
+            label = int(rng.integers(0, num_classes))
+            box = [float(rng.uniform(40.0, 320.0)),
+                   float(rng.uniform(50.0, 130.0)),
+                   float(rng.uniform(20.0, 60.0)),
+                   float(rng.uniform(20.0, 55.0)),
+                   float(rng.uniform(-30.0, 30.0))]
+            t, p, fx, fy = box[:4]
+            canvas[int((p - fy / 2) / 180 * h):int((p + fy / 2) / 180 * h),
+                   int((t - fx / 2) / 360 * w):int((t + fx / 2) / 360 * w)] \
+                = COCO_CLASS_COLORS[label % len(COCO_CLASS_COLORS)]
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": img_id,
+                "category_id": label + 1, "bbox": box, "area": fx * fy,
+                "iscrowd": 0})
+        image = Image.fromarray(canvas).filter(
+            ImageFilter.GaussianBlur(INPUT_BOX_BLUR))
+        name = f"{split}_{img_id:04d}." + ("png" if img_id == 1 else "jpg")
+        image.save(os.path.join(img_dir, name),
+                   **({} if img_id == 1 else {"quality": INPUT_JPEG_QUALITY}))
+        images.append({"id": img_id, "file_name": name, "width": w,
+                       "height": h})
+    ann_file = os.path.join(root, f"{split}.json")
+    with open(ann_file, "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": i + 1, "name": f"class_{i}"}
+                                  for i in range(num_classes)]}, f)
+    return ann_file, img_dir + "/"
+
+
+def traced(fn) -> dict:
+    """One profiled call of ``fn``, read from its Chrome trace: wall ms, the
+    device's busy ms (the union of its kernels', copies' and sets'
+    intervals), the streams that ran kernels (with their counts) and the
+    host-to-device copies (stream, bytes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    intervals = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in device)
+    busy_us, end = 0.0, -math.inf
+    for a, b in intervals:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    kernel_streams = collections.Counter(
+        e["args"].get("stream") for e in device if e["cat"] == "kernel")
+    copies = [{"stream": e["args"].get("stream"),
+               "bytes": e["args"].get("bytes"), "us": e.get("dur")}
+              for e in device if e["cat"] == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "kernel_streams": dict(kernel_streams), "h2d_copies": copies}
+
+
+def oom_ladder_on_card(seed: int, device) -> dict:
+    """``AvoidOOM`` on the card, an out-of-memory error injected: through
+    the matcher's ``_pairwise_iou_np`` with the first call failing (the gc
+    rung's matrix bitwise the unwrapped one), then with the first two
+    failing (the bf16 rung: fp32 values in [0, 1], finite, and its
+    warning)."""
+    import warnings
+
+    from sph_retina_tpu_torch.engine import eval as eval_mod
+
+    rng = np.random.default_rng(seed)
+    dets = seeded_boxes(1000, 5, rng)
+    gts = dets[:64] + rng.normal(0.0, 2.0, (64, 5)).astype(np.float32)
+    want = eval_mod._pairwise_iou_np(dets, gts, "sph2pob_efficient", device)
+    real, out = eval_mod.sph_overlaps, {}
+    for name, failures in (("gc_rung", 1), ("bf16_rung", 2)):
+        calls = []
+
+        def flaky(a, b, backend):
+            calls.append(str(a.dtype))
+            if len(calls) <= failures:
+                raise torch.cuda.OutOfMemoryError(
+                    "CUDA out of memory (injected)")
+            return real(a, b, backend)
+
+        eval_mod.sph_overlaps = flaky
+        try:
+            with warnings.catch_warnings(record=True) as said:
+                warnings.simplefilter("always")
+                got = eval_mod._pairwise_iou_np(dets, gts,
+                                                "sph2pob_efficient", device)
+        finally:
+            eval_mod.sph_overlaps = real
+        out[name] = {"calls": calls, "warnings": [str(w.message)
+                                                  for w in said],
+                     "dtype": str(got.dtype),
+                     "max_abs_diff_to_unwrapped": float(np.abs(
+                         got - want).max())}
+        if name == "gc_rung" and not (
+                calls == ["torch.float32"] * 2 and np.array_equal(got, want)):
+            raise AssertionError(f"the gc rung: {out[name]}")
+        if name == "bf16_rung" and not (
+                calls[-1] == "torch.bfloat16" and got.dtype == np.float32
+                and np.isfinite(got).all() and got.min() >= 0.0
+                and got.max() <= 1.0
+                and any("bfloat16" in w for w in out[name]["warnings"])):
+            raise AssertionError(f"the bf16 rung: {out[name]}")
+    out["matrix"] = list(want.shape)
+    return out
+
+
+def i420_against_rgb(cfg: dict, device) -> dict:
+    """The val split as RGB uint8 and as I420 batches of the same files,
+    each converted on the card: the pixel error against the JAX test's
+    bound; the card's conversion against the CPU's."""
+    std = torch.from_numpy(IMAGENET_STD).to(device)
+    batches = {}
+    for cs in ("rgb", "yuv420"):
+        c = apply_overrides(cfg, [f"data.transfer_colorspace={cs}",
+                                  "data.normalize_on_device=True"])
+        batches[cs] = next(build_datasets(c, "val")[1].epoch(0))["images"]
+    rgb = maybe_normalize_images(torch.from_numpy(batches["rgb"]).to(device))
+    i420 = torch.from_numpy(batches["yuv420"])
+    on_card = maybe_normalize_images(i420.to(device))
+    pix = ((rgb - on_card).abs() * std).float()
+    card_vs_cpu = float((on_card.cpu() - maybe_normalize_images(i420))
+                        .abs().max())
+    return {"images": int(pix.shape[0]),
+            "rgb_batch_shape": list(batches["rgb"].shape),
+            "i420_batch_shape": list(batches["yuv420"].shape),
+            "mean_pixel_error": float(pix.mean()),
+            "max_pixel_error": float(pix.max()),
+            "card_vs_cpu_max_abs": card_vs_cpu}
+
+
+def noise_panorama_i420_error(tmp: str, seed: int, device) -> dict:
+    """Not gated: the same comparison on one ``write_coco`` noise panorama
+    (per-pixel colour noise and sharp box edges) saved as a JPEG, where
+    4:2:0 chroma cannot hold what RGB holds."""
+    from PIL import Image
+
+    ann, img_dir = write_coco(os.path.join(tmp, "noise"), "val", 1, 3,
+                              INPUT_SIZE, seed)
+    (name,) = os.listdir(img_dir)
+    jpg = os.path.join(img_dir, "noise.jpg")
+    Image.open(os.path.join(img_dir, name)).save(
+        jpg, quality=INPUT_JPEG_QUALITY)
+    item = {"img_path": jpg, "boxes": np.zeros((0, 5), np.float32),
+            "labels": np.zeros((0,), np.int32)}
+    out = {}
+    for cs in ("rgb", "yuv420"):
+        pipe = SphPipeline(img_size=(512, 1024), box_version=5,
+                           training=False, normalize_on_device=True,
+                           transfer_colorspace=cs)
+        out[cs] = maybe_normalize_images(torch.from_numpy(
+            pipe(item, np.random.default_rng(0))["images"]).to(device))
+    std = torch.from_numpy(IMAGENET_STD).to(device)
+    pix = (out["rgb"] - out["yuv420"]).abs() * std
+    return {"mean_pixel_error": float(pix.mean()),
+            "max_pixel_error": float(pix.max())}
+
+
+def measure_input_mode(parts, device) -> dict:
+    """On the trainer's own loader, model and step after its run: the
+    loader's images a second (host clock, an epoch of its threads), the
+    bytes and host ms of each batch's transfer (pinned staging, a copy
+    stream, to its synchronisation), step ms (events, host clock), and one
+    profiled window of two steps fed by ``prefetch_to_device``."""
+    loader, step = parts["loader"], parts["step"]
+    t0 = time.perf_counter()
+    host = list(loader.epoch(1))
+    loader_s = time.perf_counter() - t0
+    images = sum(len(b["images"]) for b in host)
+    staging, stream = PinnedStaging(), torch.cuda.Stream()
+
+    def transfer(b):
+        return to_device({k: v for k, v in b.items() if k != "img_id"},
+                         device, staging)
+
+    h2d_ms, on_card = [], None
+    for b in host:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            on_card = transfer(b)
+        stream.synchronize()
+        h2d_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.current_stream().wait_stream(stream)
+    timed = timed_steps(step, on_card, 3)
+
+    def convert_all():
+        for b in prefetch_to_device(iter(host), transfer, device=device):
+            maybe_normalize_images(b["images"])
+
+    def two_steps():
+        for b in prefetch_to_device(iter(host[:2]), transfer, device=device):
+            step(b)
+
+    # The copies' streams from a window of transfers alone, the images
+    # converted on the consumer's stream. On the card the trace loses some
+    # large-copy records once earlier work in the process has been profiled
+    # (also for copies from the main thread), so the gate takes those it
+    # caught: at least one, and none on the consumer's stream.
+    copies = traced(convert_all)
+    window = traced(two_steps)
+    batch_image_bytes = int(host[0]["images"].nbytes)
+    compute = max(copies["kernel_streams"], key=copies["kernel_streams"].get)
+    batch_copies = [c for c in copies["h2d_copies"]
+                    if c["bytes"] == batch_image_bytes]
+    if not batch_copies or any(c["stream"] == compute
+                               for c in batch_copies):
+        raise AssertionError(
+            f"the image batches' H2D copies {batch_copies} against the "
+            f"consumer's stream {compute} (kernels by stream "
+            f"{copies['kernel_streams']}; {batch_image_bytes} bytes a "
+            f"batch; every copy {copies['h2d_copies']})")
+    return {"loader_images_per_sec": images / loader_s,
+            "loader_epoch_seconds": loader_s,
+            "batch_image_bytes": batch_image_bytes,
+            "batch_bytes": int(sum(v.nbytes for k, v in host[0].items()
+                                   if k != "img_id")),
+            "batch_image_shape": list(host[0]["images"].shape),
+            "h2d_host_ms": statistics.median(h2d_ms), "h2d_host_ms_all": h2d_ms,
+            "step_ms": {k: timed[k] for k in ("first_step_ms",
+                                              "steady_step_ms")},
+            "two_step_window": {
+                "wall_ms": window["wall_ms"],
+                "device_busy_ms": window["device_busy_ms"],
+                "device_busy_share": window["device_busy_ms"]
+                / window["wall_ms"],
+                "kernel_streams": window["kernel_streams"]},
+            "consumer_stream": compute, "image_batch_copies": batch_copies,
+            "image_batch_copies_made": len(host)}
+
+
+def phase_train_input(seed: int, reps: int) -> tuple[int, dict]:
+    """The production input path at full width: the rotated R50 config
+    trains 4 steps with one evaluation on ``INPUT_SIZE`` JPEG panoramas
+    (and one PNG) through ``train.main`` in each of ``INPUT_MODES``: the
+    native decoder (or PIL, where it cannot be built), packed-I420
+    transfer, the ``auto`` policy; transfers on the copy stream. Gates: every
+    image of a native run read by the decoder; K1 once a step and once a
+    val image, equal to its plain version; the I420 batch within the JAX
+    test's bound of the RGB batch on the card, the card's conversion within
+    ``CONVERSION_TOLERANCE`` of the CPU's; the image batches' copies on a
+    stream other than the compute stream; the injected OOM's rungs.
+    Returns K1's launches over the four runs and its check on the last
+    assignment input."""
+    device = resolve_device()
+    status = native_loader.status()
+    emit({"phase": "native_decoder", **status})
+    cfg = load_config(CONFIG)
+    classes = cfg["model"]["num_classes"]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        t0 = time.perf_counter()
+        train_ann, train_dir = write_panoramas(tmp, "train",
+                                               INPUT_TRAIN_IMAGES, classes,
+                                               seed)
+        val_ann, val_dir = write_panoramas(tmp, "val", INPUT_VAL_IMAGES,
+                                           classes, seed + 1)
+        write_seconds = time.perf_counter() - t0
+        data = [f"data.train.ann_file={train_ann}",
+                f"data.train.img_prefix={train_dir}",
+                f"data.val.ann_file={val_ann}",
+                f"data.val.img_prefix={val_dir}"]
+        data_cfg = apply_overrides(cfg, data)
+
+        real = {"build": train_cli.build_training,
+                "eval": train_cli.evaluate_dataset,
+                "probe": policy._probe_host_rates}
+        modes, assign_calls, nms_calls = [], [], []
+        last_assign = []
+        for name, colorspace, native in INPUT_MODES:
+            parts, evals, probe_decodes = {}, [], [0]
+
+            def building(*a, **kw):
+                built = real["build"](*a, **kw)
+                parts.update(zip(("model", "det_cfg", "loader", "optimizer",
+                                  "step"), built))
+                return built
+
+            def timed_eval(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real["eval"](*a, **kw)
+                evals.append(time.perf_counter() - t0)
+                return out
+
+            def probing(*a, **kw):
+                before = native_loader.status()["images"]
+                out = real["probe"](*a, **kw)
+                probe_decodes[0] += native_loader.status()["images"] - before
+                return out
+
+            train_cli.build_training = building
+            train_cli.evaluate_dataset = timed_eval
+            policy._probe_host_rates = probing
+            single_stage.sph2pob_iou_pairwise = _recording(
+                _recording(sph2pob_iou_pairwise, assign_calls),
+                last_assign, keep_last=True)
+            nms_module.sph2pob_iou_pairwise = _recording(
+                sph2pob_iou_pairwise, nms_calls)
+            decoded0 = native_loader.status()["images"]
+            sph2pob_iou_pairwise.launches = 0
+            try:
+                t0 = time.perf_counter()
+                said = _said(lambda: train_cli.main([
+                    CONFIG, "--seed", str(seed), "--max-epochs", "1",
+                    "--work-dir", os.path.join(tmp, name), "--cfg-options",
+                    "evaluation.interval=1", "log_config.interval=1",
+                    f"data.transfer_colorspace={colorspace}",
+                    "data.normalize_on_device=True",
+                    f"data.native_decoder={native}", *data]))
+                run_seconds = time.perf_counter() - t0
+            finally:
+                train_cli.build_training = real["build"]
+                train_cli.evaluate_dataset = real["eval"]
+                policy._probe_host_rates = real["probe"]
+                single_stage.sph2pob_iou_pairwise = sph2pob_iou_pairwise
+                nms_module.sph2pob_iou_pairwise = sph2pob_iou_pairwise
+            launches = sph2pob_iou_pairwise.launches
+            decoded = native_loader.status()["images"] - decoded0 \
+                - probe_decodes[0]
+            with open(os.path.join(tmp, name, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            steps = [r for r in records if r["prefix"] == "train"]
+            vals = [r for r in records if r["prefix"] == "val"]
+            chosen = parts["loader"].pipeline.transfer_colorspace
+            uses_native = native and status["available"]
+            want_decoded = INPUT_TRAIN_IMAGES + INPUT_VAL_IMAGES \
+                if uses_native else 0
+            if decoded != want_decoded:
+                raise AssertionError(
+                    f"{name}: the native decoder read {decoded} images, "
+                    f"{want_decoded} expected (status {status})")
+            steps_per_run = INPUT_TRAIN_IMAGES // TRAIN_BATCH
+            if launches != steps_per_run + INPUT_VAL_IMAGES or \
+                    [s["step"] for s in steps] != list(
+                        range(1, steps_per_run + 1)) or len(vals) != 1:
+                raise AssertionError(
+                    f"{name}: {launches} K1 launches, steps {steps}, "
+                    f"val records {vals}")
+            if not all(math.isfinite(r["loss"]) for r in steps):
+                raise AssertionError(f"{name}: a loss is not finite: {steps}")
+            if "native decoder compiler" not in said:
+                raise AssertionError(f"{name}: no environment in {said!r}")
+            mode = {"mode": name, "transfer_colorspace": chosen,
+                    "decoder": "native" if uses_native else "PIL",
+                    "native_images": decoded, "run_seconds": run_seconds,
+                    "kernel_launches": launches,
+                    "losses": [r["loss"] for r in steps],
+                    "evaluation_seconds": evals[0],
+                    "val_record": {k: vals[0][k] for k in ("mAP", "AP50")},
+                    **measure_input_mode(parts, device)}
+            if colorspace == "auto":
+                mode["auto_probe"] = policy.resolve_transfer_colorspace \
+                    .last_probe
+                mode["probe_native_decodes"] = probe_decodes[0]
+            modes.append(mode)
+            emit({"phase": "train_input_mode", **mode})
+            del parts
+        # each read just after its run, before the measurements' own steps
+        total_launches = sum(m["kernel_launches"] for m in modes)
+
+        want_assign = [list(ASSIGN_SHAPE[::2]), list(ASSIGN_SHAPE[1:])]
+        if assign_calls != [want_assign] * (
+                len(INPUT_MODES) * INPUT_TRAIN_IMAGES // TRAIN_BATCH):
+            raise AssertionError(f"assignment calls {assign_calls}")
+        if len(nms_calls) != len(INPUT_MODES) * INPUT_VAL_IMAGES or any(
+                a != b or a[0] > 1000 or a[1] != 5 for a, b in nms_calls):
+            raise AssertionError(f"NMS calls {nms_calls}")
+        bound = i420_against_rgb(data_cfg, device)
+        if not (bound["mean_pixel_error"] < I420_BOUND[0]
+                and bound["max_pixel_error"] < I420_BOUND[1]):
+            raise AssertionError(f"I420 against RGB on the card: {bound}")
+        if not bound["card_vs_cpu_max_abs"] <= CONVERSION_TOLERANCE:
+            raise AssertionError(f"the card's I420 conversion: {bound}")
+        noise = noise_panorama_i420_error(tmp, seed, device)
+
+    (_, b1, b2), = last_assign
+    on_assign = {"input": "train_input: the last assignment input",
+                 **check_kernel(KERNELS[0], b1, b2, reps, identical=False)}
+    oom = oom_ladder_on_card(seed, device)
+    emit({"phase": "train_input", "config": os.path.relpath(CONFIG, ROOT),
+          "panorama_size": list(INPUT_SIZE), "train_images":
+          INPUT_TRAIN_IMAGES, "val_images": INPUT_VAL_IMAGES,
+          "jpeg_quality": INPUT_JPEG_QUALITY, "box_blur_px": INPUT_BOX_BLUR,
+          "dataset_write_seconds": write_seconds,
+          "native_decoder_available": status["available"],
+          "modes": [{k: m[k] for k in (
+              "mode", "transfer_colorspace", "decoder",
+              "loader_images_per_sec", "batch_image_bytes", "h2d_host_ms",
+              "step_ms", "evaluation_seconds")} for m in modes],
+          "i420_vs_rgb_on_card": bound, "i420_bound": list(I420_BOUND),
+          "noise_panorama_i420_error_not_gated": noise,
+          "kernel_launches": total_launches, "oom_ladder": oom,
+          "kernel_on_assignment_input": on_assign})
+    return total_launches, on_assign
+
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2692,10 +3165,13 @@ def main(argv=None) -> int:
     trained, on_val_nms_input = phase_train_coco(args.seed, args.reps)
     launches["sph2pob_iou_pairwise"] += trained
     launches["sph2pob_iou_pairwise"] += phase_export(args.seed, args.reps)
+    trained, on_input_assign = phase_train_input(args.seed, args.reps)
+    launches["sph2pob_iou_pairwise"] += trained
     # K1 on the inputs its paths gave it, beside its seeded shapes
     shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input,
                                        on_iou_input, on_ssd_input,
-                                       *on_frcnn_input, on_val_nms_input]
+                                       *on_frcnn_input, on_val_nms_input,
+                                       on_input_assign]
     idle = [k.name for k in KERNELS if launches[k.name] < 1]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

@@ -24,7 +24,14 @@ detector family (RetinaNet, FCOS, SSD-VGG16, Faster R-CNN):
   ``torch.export`` artifact of the whole predict path), the CLIs
   ``python -m sph_retina_tpu_torch.export_model`` and
   ``python -m sph_retina_tpu_torch.deployment_test`` (an artifact scored
-  over a dataset).
+  over a dataset);
+- the input path: COCO-style panoramas decoded, resized and flipped by the
+  native C++ decoder (``data/native_loader.py``, ``csrc/sphloader.cpp``,
+  built at first use with the host's compiler; PIL where it cannot be),
+  shipped as RGB uint8 or packed I420 (``transfer_colorspace``, ``auto``
+  chosen by measured rates), copied to the card on a stream of its own and
+  converted there; the evaluation's IoU under the device-OOM ladder
+  (``utils/memory.py``).
 
 Box conventions, degrees at the boundary, as in the JAX package:
 

@@ -1,16 +1,18 @@
 """Batching + background prefetch, and a synthetic dataset for tests.
 
-A thread-pool prefetcher: pipeline work is PIL/numpy (which release the
-interpreter lock), batches are stacked on the host as numpy arrays;
-``prefetch_to_device`` turns them into tensors on the device one batch ahead
-of the step. Indices and per-sample random streams are drawn exactly as the
-JAX package's loader draws them, so both yield identical batches from the
-same dataset and seed.
+A thread-pool prefetcher: pipeline work is the native decoder, PIL or numpy
+(all of which release the interpreter lock for their long calls), batches
+are stacked on the host as numpy arrays; ``prefetch_to_device`` turns them
+into tensors on the device two batches ahead of the step, on a thread of its
+own and, on the card, on a CUDA stream of its own (``to_device`` through
+``PinnedStaging``). Indices and per-sample random streams are drawn exactly
+as the JAX package's loader draws them, so both yield identical batches from
+the same dataset and seed.
 """
 
 from __future__ import annotations
 
-import collections
+import contextlib
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -108,34 +110,133 @@ class DataLoader:
             yield item
 
 
-def to_device(batch: dict, device: torch.device) -> dict:
+class PinnedStaging:
+    """Pinned host buffers, reused round-robin, through which a batch is
+    copied to the card.
+
+    A batch's arrays are copied into a slot's page-locked tensors (the copy
+    releases the interpreter lock), then to the device with ``non_blocking``
+    copies on the current stream, after which an event is recorded; before a
+    slot is written again its event is waited for, so a copy still in flight
+    never reads overwritten memory. A slot's tensors are allocated once, and
+    again only when a batch's shapes change (the last, partial batch)."""
+
+    def __init__(self, slots: int = 2):
+        self._slots = [{} for _ in range(slots)]
+        self._events = [None] * slots
+        self._next = 0
+
+    def __call__(self, batch: dict, device: torch.device) -> dict:
+        i = self._next
+        self._next = (i + 1) % len(self._slots)
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        slot, out = self._slots[i], {}
+        for k, v in batch.items():
+            src = torch.from_numpy(np.ascontiguousarray(v))
+            buf = slot.get(k)
+            if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
+                buf = slot[k] = torch.empty(src.shape, dtype=src.dtype,
+                                            pin_memory=True)
+            buf.copy_(src)
+            out[k] = buf.to(device, non_blocking=True)
+        self._events[i] = torch.cuda.Event()
+        self._events[i].record()
+        return out
+
+
+def to_device(batch: dict, device, staging: PinnedStaging | None = None
+              ) -> dict:
     """A numpy batch as tensors on ``device``. For the card the arrays go
-    through pinned host memory and the copies are asynchronous
-    (``non_blocking``), on the current stream."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t
-    return out
+    through pinned host memory (``staging``'s reused buffers, else buffers
+    pinned for this call) and the copies are asynchronous (``non_blocking``)
+    on the current stream: under ``prefetch_to_device``, its copy stream."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in batch.items()}
+    return (staging or PinnedStaging(slots=1))(batch, device)
 
 
-def prefetch_to_device(iterator, transfer, depth: int = 1):
-    """Keep ``depth`` transferred batches ahead of the consumer.
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def prefetch_to_device(iterator, transfer, depth: int = 2, device=None):
+    """Overlap host->device transfer with device compute.
 
     ``transfer`` maps a host batch to tensors on the device (``to_device``).
-    Its copies are asynchronous, so the host has enqueued batch k+1's copy
-    before the consumer's step on batch k returns; on the device they run in
-    stream order, between two steps.
+    Transfers run on a background thread, ``depth`` batches ahead of the
+    consumer, in order; an exception of the producer or of a transfer is
+    raised in the consumer after the batches before it. With a CUDA
+    ``device`` the transfers run on a dedicated ``torch.cuda.Stream``: an
+    event is recorded after each batch's copies, the consumer's current
+    stream waits on it before the batch is yielded, and every tensor of the
+    batch is ``record_stream``-ed on that stream, so the caching allocator
+    cannot hand its memory out while the consumer's kernels still read it.
+    Without a CUDA device no stream is created.
     """
-    ahead = collections.deque()
-    for batch in iterator:
-        ahead.append(transfer(batch))
-        if len(ahead) > depth:
-            yield ahead.popleft()
-    while ahead:
-        yield ahead.popleft()
+    device = None if device is None else torch.device(device)
+    stream = torch.cuda.Stream(device) if device is not None \
+        and device.type == "cuda" else None
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = object()
+    closed = threading.Event()
+
+    def put(item) -> bool:
+        # gives up once the consumer is gone, so the thread never blocks on
+        # a queue nobody reads
+        while not closed.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def run():
+        try:
+            with torch.cuda.stream(stream) if stream is not None \
+                    else contextlib.nullcontext():
+                for batch in iterator:
+                    out = transfer(batch)
+                    ready = None
+                    if stream is not None:
+                        ready = torch.cuda.Event()
+                        ready.record(stream)
+                    if not put((out, ready)):
+                        return
+        except BaseException as e:  # noqa: BLE001 — re-raised in consumer
+            put(e)
+        else:
+            put(stop)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is stop:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            out, ready = item
+            if ready is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_event(ready)
+                for v in _tensors(out):
+                    if v.is_cuda:
+                        v.record_stream(current)
+            yield out
+    finally:
+        closed.set()
 
 
 def make_synthetic_dataset(

@@ -93,9 +93,11 @@ def build_datasets(cfg: dict, split: str = "train", num_shards: int = 1,
                    shard_id: int = 0):
     """``(dataset, loader)`` of ``cfg["data"][split]``: the COCO-style
     annotation file through the pipeline. Only ``train`` flips, shuffles and
-    drops the last partial batch. ``transfer_colorspace`` other than
-    ``"rgb"`` and ``num_shards > 1`` raise by name (the pipeline and the
-    loader say which)."""
+    drops the last partial batch. ``data.transfer_colorspace`` is ``"rgb"``,
+    ``"yuv420"`` (which forces ``normalize_on_device``) or ``"auto"``,
+    resolved by the measured policy (``data/policy.py``) for
+    ``workers_per_gpu`` workers; ``data.native_decoder=False`` decodes with
+    PIL. ``num_shards > 1`` raises by name (the loader says so)."""
     d = cfg["data"][split]
     box_version = cfg["model"].get("box_version", 4)
     ds = SphCocoDataset(
@@ -103,19 +105,25 @@ def build_datasets(cfg: dict, split: str = "train", num_shards: int = 1,
         img_prefix=d.get("img_prefix", ""),
         box_version=box_version,
     )
+    img_size = tuple(cfg.get("img_size", (512, 1024)))
     colorspace = cfg["data"].get("transfer_colorspace", "rgb")
     if colorspace == "auto":
-        raise NotImplementedError(
-            "transfer_colorspace='auto' (the measured link-vs-host policy) "
-            "is not available in this package yet; use 'rgb'")
+        # measured link-vs-host trade: yuv420 where the link binds, rgb
+        # where the host's decoding does
+        from ..data.policy import resolve_transfer_colorspace
+
+        colorspace = resolve_transfer_colorspace(
+            img_size, num_workers=cfg["data"].get("workers_per_gpu", 4))
     pipe = SphPipeline(
-        img_size=tuple(cfg.get("img_size", (512, 1024))),
+        img_size=img_size,
         flip_ratio=cfg["data"].get("flip_ratio", 0.5) if split == "train" else 0.0,
         max_gt=cfg["data"].get("max_gt", 64),
         box_version=box_version,
         training=split == "train",
-        normalize_on_device=cfg["data"].get("normalize_on_device", False),
+        normalize_on_device=cfg["data"].get("normalize_on_device", False)
+        or colorspace == "yuv420",
         transfer_colorspace=colorspace,
+        native_decoder=cfg["data"].get("native_decoder", True),
     )
     loader = DataLoader(
         ds, pipe,

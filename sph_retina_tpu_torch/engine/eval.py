@@ -5,8 +5,8 @@ uses a spherical IoU: per class and IoU threshold, score-ordered greedy
 matching, 101-point interpolated AP — pycocotools' semantics. The IoU
 matrix comes from ``iou.api.sph_overlaps`` (any backend, plain PyTorch, the
 unfused Sph2Pob for ``sph2pob_efficient``, never the fused kernel) on the
-device the caller gives, in fp32, read back once an image; everything after
-it is numpy in float64.
+device the caller gives, in fp32, under the OOM ladder (``utils/memory.py``),
+read back once an image; everything after it is numpy in float64.
 
 Crowd / ignore regions (COCO ``iscrowd``): annotations may carry
 ``ignore_boxes`` / ``ignore_labels``. Ignored GT contributes no recall
@@ -28,22 +28,33 @@ import torch
 
 from ..iou.api import sph_overlaps
 from ..utils.device import resolve_device
+from ..utils.memory import AvoidOOM
 
 COCO_IOU_THRS = tuple(np.round(np.arange(0.5, 1.0, 0.05), 2))
 
 
+@torch.no_grad()
+def _matcher_overlaps(dets, gts, backend):
+    return sph_overlaps(dets, gts, backend)
+
+
+# Device-OOM ladder (gc -> bf16 -> CPU) for very large det x gt matrices,
+# the reference's AvoidCUDAOOM around test-time ops. The fallbacks that
+# change numerics (bf16) warn, so a precision change in the matching is
+# never silent.
+_guarded_overlaps = AvoidOOM()(_matcher_overlaps)
+
+
 def _pairwise_iou_np(det_boxes, gt_boxes, backend, device=None):
     """IoU matrix (n_det, n_gt), fp32, computed on ``device`` (``None``:
-    the CUDA device)."""
+    the CUDA device) under ``AvoidOOM``."""
     n_det, n_gt = len(det_boxes), len(gt_boxes)
     if n_det == 0 or n_gt == 0:
         return np.zeros((n_det, n_gt), np.float32)
     device = resolve_device(device)
     dets = torch.as_tensor(np.asarray(det_boxes, np.float32), device=device)
     gts = torch.as_tensor(np.asarray(gt_boxes, np.float32), device=device)
-    with torch.no_grad():
-        iou = sph_overlaps(dets, gts, backend)
-    return iou.cpu().numpy()
+    return _guarded_overlaps(dets, gts, backend).cpu().numpy()
 
 
 def _box_area_np(boxes: np.ndarray) -> np.ndarray:

@@ -5,6 +5,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..data.loader import PinnedStaging, prefetch_to_device, to_device
 from .eval import eval_spherical_map
 from .zoo import RetinaNetFamily
 
@@ -34,8 +35,9 @@ def evaluate_dataset(
     ``predict(images) -> NMSResult`` defaults to the RetinaNet path; pass a
     zoo family's ``predict_fn`` for other detectors. It runs under
     ``torch.no_grad()`` with the model in ``eval()`` mode; the model is put
-    back in the mode it was found in. ``device`` is where the matcher's IoU
-    matrices are computed (``None``: the model's device).
+    back in the mode it was found in. ``device`` is where the images are
+    sent (``prefetch_to_device``: on a copy stream of its own on the card)
+    and the matcher's IoU matrices computed (``None``: the model's device).
     """
     if distributed:
         raise NotImplementedError(
@@ -45,13 +47,21 @@ def evaluate_dataset(
         predict = make_predict_step(model, cfg)
     if device is None:
         device = next(model.parameters()).device
+    device = torch.device(device)
+    staging = PinnedStaging() if device.type == "cuda" else None
+
+    def transfer(batch):
+        return batch, to_device({"images": batch["images"]}, device,
+                                staging)["images"]
+
     acc = {k: [] for k in _KEYS}
     was_training = model.training
     model.eval()
     try:
         with torch.no_grad():
-            for batch in loader.epoch(0):
-                res = predict(torch.from_numpy(batch["images"]))
+            for batch, images in prefetch_to_device(
+                    loader.epoch(0), transfer, device=device):
+                res = predict(images)
                 b, _, d = batch["gt_boxes"].shape
                 acc["boxes"].append(res.boxes.float().cpu().numpy())
                 acc["scores"].append(res.scores.float().cpu().numpy())

@@ -250,10 +250,13 @@ def run_training(
     transfer=lambda b: b,
     memory_interval: int | None = None,
     model=None,
+    device=None,
 ):
     """The main loop. ``train_step(batch) -> metrics`` updates the model in
     place; ``transfer`` maps a host batch of the loader to tensors on the
-    model's device. ``eval_fn() -> dict`` runs after every epoch where
+    model's device, two batches ahead of the step, on a copy stream of its
+    own where ``device`` is a CUDA device (``prefetch_to_device``).
+    ``eval_fn() -> dict`` runs after every epoch where
     ``(epoch + 1) % eval_interval == 0`` (logged with prefix ``val``, its
     ``AP50`` passed to the checkpointer), and ``checkpointer`` saves
     ``model`` every ``ckpt_interval`` epochs and after the last one, with
@@ -269,7 +272,8 @@ def run_training(
 
     for epoch in range(start_epoch, max_epochs):
         t_epoch = time.time()
-        for batch in prefetch_to_device(loader.epoch(epoch), transfer):
+        for batch in prefetch_to_device(loader.epoch(epoch), transfer,
+                                        device=device):
             metrics = train_step(batch)
             step_count += 1
             if step_count % logger.interval == 0:

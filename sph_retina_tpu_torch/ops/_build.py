@@ -17,6 +17,12 @@ with nvcc's default contraction into FMAs it runs 10-25 % faster, but
 near-degenerate pairs (identical boxes, touching cells) land on the other side
 of a jitter threshold and differ by up to 2.3e-4, beyond the 1e-4 the kernel
 is held to (``chip_smoke.py --fmad-probe`` measures both).
+
+The native image decoder (``csrc/sphloader.cpp``, host C++, no CUDA) is built
+the same way with the host's C++ compiler (``build_host_library``), with the
+flags of the JAX package's ``native/Makefile``. It is compiled with
+``-march=native``, so its file name also carries the CPU's feature
+fingerprint: a library built on another machine is never picked up.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ import subprocess
 import threading
 import time
 
+from ..utils.hostfp import cpu_feature_fingerprint
+
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "csrc")
 DEFAULT_BUILD_DIR = os.path.join(
@@ -40,6 +48,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, spills and shared memory into the log
 )
+
+# native/Makefile's CXXFLAGS and LDLIBS
+HOST_CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-march=native",
+                  "-shared")
+HOST_LIBS = ("-ljpeg", "-lpng", "-lpthread")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -114,3 +127,60 @@ def load_library(name: str) -> ctypes.CDLL:
             path = build_library(name)[0]
             lib = _loaded[name] = ctypes.CDLL(path)
         return lib
+
+
+def find_cxx() -> str:
+    """The host C++ compiler: ``$CXX``, then ``c++``, ``g++``, ``clang++`` on
+    ``PATH``."""
+    candidates = [os.environ.get("CXX")] + [
+        shutil.which(c) for c in ("c++", "g++", "clang++")]
+    for c in candidates:
+        if c and shutil.which(c):
+            return shutil.which(c)
+    raise RuntimeError("no C++ compiler found ($CXX, c++, g++, clang++)")
+
+
+def host_library_path(name: str, build_dir: str | None = None,
+                      fingerprint: str | None = None, cxx: str = "") -> str:
+    """Where the library of ``csrc/<name>.cpp`` lives: ``lib<name>-<CPU
+    fingerprint>-<hash of the source, compiler, flags and fingerprint>.so``
+    in ``build_dir``."""
+    fingerprint = fingerprint or cpu_feature_fingerprint()
+    h = hashlib.sha256(" ".join(
+        (cxx, *HOST_CXX_FLAGS, *HOST_LIBS, fingerprint)).encode())
+    with open(os.path.join(CSRC_DIR, name + ".cpp"), "rb") as f:
+        h.update(f.read())
+    return os.path.join(build_dir or DEFAULT_BUILD_DIR,
+                        f"lib{name}-{fingerprint}-{h.hexdigest()[:16]}.so")
+
+
+def build_host_library(name: str, build_dir: str | None = None
+                       ) -> tuple[str, float, str]:
+    """Compile ``csrc/<name>.cpp`` with the host C++ compiler if no library
+    of its name exists yet (``host_library_path``).
+
+    Returns (path, seconds spent compiling, the compiler's output — 0.0 and
+    "" when it was already built). Raises ``RuntimeError`` with the
+    compiler's output when there is no compiler or the compilation fails.
+    The compiler writes to a name of this process and thread, renamed into
+    place, so that processes building at once never load a partial file.
+    """
+    cxx = find_cxx()
+    out = host_library_path(name, build_dir, cxx=cxx)
+    if os.path.isfile(out):
+        return out, 0.0, ""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    source = os.path.join(CSRC_DIR, name + ".cpp")
+    cmd = [cxx, *HOST_CXX_FLAGS, "-o", tmp, source, *HOST_LIBS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(
+            f"{os.path.basename(cxx)} failed ({proc.returncode}) on {source}:"
+            f"\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out, seconds, proc.stdout + proc.stderr

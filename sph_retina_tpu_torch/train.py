@@ -34,12 +34,14 @@ import sys
 import torch
 
 from .data import DataLoader, SphPipeline, make_synthetic_dataset, to_device
+from .data.loader import PinnedStaging
 from .engine.builder import build_datasets, build_tx
 from .engine.evaluator import evaluate_dataset
 from .engine.runner import Checkpointer, MetricLogger, run_training
 from .engine.zoo import get_family, make_generic_train_step
 from .utils.config import apply_overrides, load_config
 from .utils.device import resolve_device
+from .utils.env import env_string
 
 
 def parse_args(argv=None):
@@ -150,6 +152,7 @@ def main(argv=None) -> int:
     print(f"device: {device}; steps/epoch: {len(loader)}; "
           f"trainable tensors: {len(optimizer.params)}, "
           f"frozen: {len(optimizer.frozen_names)}")
+    print(env_string())  # collect_env parity: log the environment
 
     predict = get_family(cfg).predict_fn(model, det_cfg)
 
@@ -158,6 +161,7 @@ def main(argv=None) -> int:
             model, det_cfg, val_loader, predict=predict).items()
             if isinstance(v, (int, float))}
 
+    staging = PinnedStaging() if device.type == "cuda" else None
     log_cfg = cfg.get("log_config", {})
     logger = MetricLogger(work_dir, interval=log_cfg.get("interval", 10),
                           wandb_init=log_cfg.get("wandb", None))
@@ -174,9 +178,11 @@ def main(argv=None) -> int:
             eval_fn=eval_fn if cfg.get("evaluation") else None,
             eval_interval=(cfg.get("evaluation") or {}).get("interval", 5),
             transfer=lambda b: to_device(
-                {k: v for k, v in b.items() if k != "img_id"}, device),
+                {k: v for k, v in b.items() if k != "img_id"}, device,
+                staging),
             memory_interval=memory_interval(cfg),
             model=model,
+            device=device,
         )
     finally:
         logger.close()

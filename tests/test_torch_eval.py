@@ -5,8 +5,9 @@ against the JAX package's, on the CPU.
   ``tests/utils/synthetic_coco.py`` with crowd annotations and an empty
   image added, read as 4-dof and as 5-dof, empty images kept and dropped;
 - ``build_datasets``: the same batches for all three splits (``array_equal``),
-  the JAX side decoding through PIL as the port does (its native C++ loader,
-  where built, normalises with another rounding; it is not ported yet);
+  both sides decoding through PIL (the native C++ decoders, where built,
+  normalise with another rounding); ``transfer_colorspace`` ``yuv420`` and
+  ``auto`` build, shards raise;
 - ``eval_spherical_map`` / ``eval_voc_map``: 1e-12 where the JAX side's
   ``_pairwise_iou_np`` is given the port's IoUs (the rest is float64 numpy
   on both sides); 1e-6 with each side's own IoUs, on inputs whose IoUs and
@@ -58,10 +59,13 @@ CPU = torch.device("cpu")
 
 @pytest.fixture
 def pil_decoding(monkeypatch):
-    """The JAX pipeline's PIL path, not its native loader."""
+    """Both pipelines' PIL path, not their native decoders (whose fp32
+    output normalises with another rounding)."""
     from sph_retina_tpu.data import native_loader
+    from sph_retina_tpu_torch.data import native_loader as port_native
 
     monkeypatch.setattr(native_loader, "available", lambda: False)
+    monkeypatch.setattr(port_native, "available", lambda: False)
 
 
 @pytest.fixture(scope="module")
@@ -146,14 +150,32 @@ def test_build_datasets_gives_the_jax_packages_batches(coco, split,
                 np.testing.assert_array_equal(g[k], w[k], err_msg=k)
 
 
-def test_build_datasets_refuses_what_is_not_ported(coco):
+def test_build_datasets_refuses_what_is_not_ported(coco, monkeypatch):
+    """``auto`` and ``yuv420`` build (``auto`` resolved by the policy, here
+    with its probes replaced: a link that binds gives ``yuv420``, no card
+    gives ``rgb``); shards still raise."""
+    from sph_retina_tpu_torch.data import policy
+
     cfg = _cfg(*coco)
-    cfg["data"]["transfer_colorspace"] = "auto"
-    with pytest.raises(NotImplementedError, match="auto"):
-        tbuilder.build_datasets(cfg, "val")
     cfg["data"]["transfer_colorspace"] = "yuv420"
-    with pytest.raises(NotImplementedError, match="yuv420"):
-        tbuilder.build_datasets(cfg, "val")
+    _, loader = tbuilder.build_datasets(cfg, "val")
+    assert loader.pipeline.transfer_colorspace == "yuv420"
+    assert loader.pipeline.normalize_on_device  # forced by yuv420
+    assert next(loader.epoch(0))["images"].shape == (3, H * 3 // 2, W)
+    cfg["data"]["transfer_colorspace"] = "auto"
+    monkeypatch.setattr(policy, "_probe_host_rates",
+                        lambda img_size: {"rgb": 500.0, "yuv420": 400.0})
+    monkeypatch.setattr(policy, "_probe_link_bytes_per_sec", lambda: 1e6)
+    _, loader = tbuilder.build_datasets(cfg, "val")
+    assert loader.pipeline.transfer_colorspace == "yuv420"
+
+    def no_card():
+        raise RuntimeError("no CUDA device to probe the link to")
+
+    monkeypatch.setattr(policy, "_probe_link_bytes_per_sec", no_card)
+    with pytest.warns(UserWarning, match="using 'rgb'"):
+        _, loader = tbuilder.build_datasets(cfg, "val")
+    assert loader.pipeline.transfer_colorspace == "rgb"
     cfg["data"]["transfer_colorspace"] = "rgb"
     with pytest.raises(NotImplementedError, match="shards"):
         tbuilder.build_datasets(cfg, "val", num_shards=2, shard_id=1)

@@ -215,11 +215,13 @@ def test_both_loaders_yield_identical_batches(slice_):
 
 
 def test_loader_rejects_shards_and_pipeline_rejects_yuv():
+    """Shards raise; ``yuv420`` without ``normalize_on_device`` raises the
+    JAX package's ``ValueError`` (the conversion runs in the step)."""
     ds = make_synthetic_dataset(n_images=4)
     with pytest.raises(NotImplementedError, match="num_shards"):
         DataLoader(ds, SphPipeline(), num_shards=2)
-    with pytest.raises(NotImplementedError, match="yuv420"):
-        SphPipeline(normalize_on_device=True, transfer_colorspace="yuv420")
+    with pytest.raises(ValueError, match="normalize_on_device"):
+        SphPipeline(transfer_colorspace="yuv420")
     u8 = SphPipeline(img_size=(H, W), normalize_on_device=True)(
         ds[0], np.random.default_rng(0))
     assert u8["images"].dtype == np.uint8
