@@ -21,9 +21,13 @@ one request to the soft-NMS one; the training workflow on a COCO-style set;
 the export of the rotated config and the deployment evaluation of its
 artifact; the production input path (native decoder or PIL, packed-I420
 transfer, the ``auto`` policy, copies on a stream of their own, the
-evaluation's OOM ladder) on 960x1920 panoramas; and the IoU tool (``benchmark_iou.main``,
-the kernel and the other backends) — and holds every CUDA kernel of those
-paths against its plain PyTorch version on the card.
+evaluation's OOM ladder) on 960x1920 panoramas; pretrained weights and
+result analysis (``--load-backbone`` from torchvision-layout ResNet-50 and
+VGG16 files, ``test.py --save-raw``, the four analysis tools on the card and
+on the CPU, an mmdet checkpoint converted and served); and the IoU tool
+(``benchmark_iou.main``, the kernel and the other backends) — and holds
+every CUDA kernel of those paths against its plain PyTorch version on the
+card.
 
 Phases, each printing one JSON line; any failure ends the run non-zero:
 
@@ -100,7 +104,21 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             the card's conversion within 1e-4 of the CPU's; the image
             batches' copies on another stream than the compute stream; an
             injected OOM climbing ``AvoidOOM``'s gc and bf16 rungs
-17. the kernels' summary line, then the last line
+17. pretrained  ``train.main --load-backbone`` of a seeded torchvision-
+            layout ResNet-50 file on the rotated config, 4 steps: the
+            backbone the file's before the first step, the frozen stem and
+            stage 1 and every batch-norm statistic still the file's after
+            the last, K1 once a step; ``test.main --synthetic --save-raw``
+            (K1 once a val image; the raw file's keys); the four analysis
+            tools on it with ``--device cuda`` and ``cpu`` (integers equal,
+            floats within 1e-6; without matplotlib the plotting tools' numeric
+            part, said on a ``pretrained_plots`` line); a seeded mmdet
+            RetinaNet-R50 checkpoint through ``convert_reference_checkpoint``
+            and 3 requests (K1 once each, bitwise the detector loaded from
+            ``port_mmdet_retinanet``); the SSD config from a seeded VGG16
+            file, 2 steps (the 13 convs the file's, conv6 / conv7 / L2Norm
+            initialised, K1 once a step at (256, 49056) D=4)
+18. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
 Weights are random, made from ``--seed``; no number printed here says
@@ -119,6 +137,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -134,21 +153,34 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from sph_retina_tpu_torch import analyze_results as analyze_cli
 from sph_retina_tpu_torch import benchmark_iou
+from sph_retina_tpu_torch import coco_error_analysis as error_cli
+from sph_retina_tpu_torch import confusion_matrix as confusion_cli
+from sph_retina_tpu_torch import convert_reference_checkpoint as convert_cli
 from sph_retina_tpu_torch import deployment_test as deployment_cli
 from sph_retina_tpu_torch import export as export_cli
+from sph_retina_tpu_torch import occluded_recall as recall_cli
 from sph_retina_tpu_torch import publish as publish_cli
 from sph_retina_tpu_torch import test as test_cli
 from sph_retina_tpu_torch import train as train_cli
 from sph_retina_tpu_torch.apis import inference_detector, init_detector
 from sph_retina_tpu_torch.boxes import nms as nms_module
 from sph_retina_tpu_torch.engine import evaluator, runner
+from sph_retina_tpu_torch.engine.analysis import (
+    confusion_matrix,
+    load_raw_results,
+    per_image_scores,
+    save_raw_results,
+)
 from sph_retina_tpu_torch.engine.builder import build_datasets
 from sph_retina_tpu_torch.engine.eval import eval_spherical_map
+from sph_retina_tpu_torch.engine.zoo import get_family
 from sph_retina_tpu_torch.data import (
     PinnedStaging,
     SphCocoDataset,
     SphPipeline,
+    make_synthetic_dataset,
     native_loader,
     policy,
     prefetch_to_device,
@@ -163,7 +195,11 @@ from sph_retina_tpu_torch.losses import (
     sph_kent_loss,
     sph_l1_loss,
 )
-from sph_retina_tpu_torch.models import faster_rcnn, single_stage
+from sph_retina_tpu_torch.models import (
+    faster_rcnn,
+    port_mmdet_retinanet,
+    single_stage,
+)
 from sph_retina_tpu_torch.ops import _build, fused_iou
 from sph_retina_tpu_torch.ops.fused_iou import (
     sph2pob_disjoint_plain,
@@ -177,6 +213,7 @@ from sph_retina_tpu_torch.ops.sph2pob_iou import (
 from sph_retina_tpu_torch.serve import make_handler
 from sph_retina_tpu_torch.utils.config import apply_overrides, load_config
 from sph_retina_tpu_torch.utils.device import resolve_device
+from sph_retina_tpu_torch.utils.publish import load_published
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs",
@@ -1109,13 +1146,16 @@ def timed_steps(step, batch, n: int) -> dict:
             "losses": losses}
 
 
-def drive_trainer(config: str, steps: int, batch: int, seed: int) -> dict:
+def drive_trainer(config: str, steps: int, batch: int, seed: int,
+                  extra=(), work: str | None = None) -> dict:
     """``train.main`` as a user starts it, one epoch of ``steps`` steps,
-    logging every step. The pairwise kernel's launch counter is set to 0
-    just before and read just after; its calls are recorded (shapes, and
-    the inputs of the last call of each shape). Returns the config, what
-    ``build_training`` built, the per-step log records, the kernel's
-    launches and calls, and the trainer's wall time."""
+    logging every step, with the arguments ``extra`` added; in the
+    directory ``work`` (kept), else in a temporary one. The pairwise
+    kernel's launch counter is set to 0 just before and read just after;
+    its calls are recorded (shapes, and the inputs of the last call of each
+    shape). Returns the config, what ``build_training`` built, the per-step
+    log records, the kernel's launches and calls, the trainer's output and
+    wall time."""
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     built, calls, last_inputs = {}, [], {}
     build_training = train_cli.build_training
@@ -1135,15 +1175,16 @@ def drive_trainer(config: str, steps: int, batch: int, seed: int) -> dict:
     faster_rcnn.sph2pob_iou_pairwise = recording
     said = io.StringIO()
     try:
-        with tempfile.TemporaryDirectory(
-                dir=os.path.join(ROOT, "build")) as work:
+        with (contextlib.nullcontext(work) if work else
+              tempfile.TemporaryDirectory(
+                  dir=os.path.join(ROOT, "build"))) as work:
             sph2pob_iou_pairwise.launches = 0
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(said):
                 rc = train_cli.main([
                     config, "--synthetic", "--seed", str(seed),
-                    "--max-epochs", "1", "--work-dir", work, "--cfg-options",
-                    f"data.n_synthetic={steps * batch}",
+                    "--max-epochs", "1", "--work-dir", work, *extra,
+                    "--cfg-options", f"data.n_synthetic={steps * batch}",
                     "log_config.interval=1"])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
@@ -1165,7 +1206,8 @@ def drive_trainer(config: str, steps: int, batch: int, seed: int) -> dict:
             raise AssertionError(f"a loss is not finite: {r}")
     return {"cfg": built["cfg"], "parts": built["parts"], "steps": logged,
             "launches": launches, "calls": calls,
-            "last_inputs": last_inputs, "seconds": seconds}
+            "last_inputs": last_inputs, "said": said.getvalue(),
+            "seconds": seconds}
 
 
 def phase_train(seed: int, reps: int) -> tuple[int, dict]:
@@ -3117,6 +3159,589 @@ def phase_train_input(seed: int, reps: int) -> tuple[int, dict]:
     return total_launches, on_assign
 
 
+# --------------------------------------------------------------------------- #
+# pretrained weights and result analysis
+# --------------------------------------------------------------------------- #
+PRETRAINED_STEPS = 4        # the rotated R50 config from a loaded backbone
+PRETRAINED_SSD_STEPS = 2    # the SSD config from a loaded VGG16
+PRETRAINED_REQUESTS = 3     # to the detector of a converted mmdet checkpoint
+PRETRAINED_VAL_IMAGES = 16  # test.py --synthetic
+TOOL_TOLERANCE = 1e-6       # card vs CPU, as for the mAP (phase train_coco)
+RAW_KEYS = {"boxes", "scores", "labels", "valid", "gt_boxes", "gt_labels",
+            "gt_mask", "ig_boxes", "ig_labels", "ig_mask", "img_id"}
+RESNET50_STAGES = ((64, 3), (128, 4), (256, 6), (512, 3))
+VGG16_FEATURES = ((0, 3, 64), (2, 64, 64), (5, 64, 128), (7, 128, 128),
+                  (10, 128, 256), (12, 256, 256), (14, 256, 256),
+                  (17, 256, 512), (19, 512, 512), (21, 512, 512),
+                  (24, 512, 512), (26, 512, 512), (28, 512, 512))
+
+
+def _he(rng, *shape) -> torch.Tensor:
+    fan_in = math.prod(shape[1:])
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                            * np.float32(math.sqrt(2.0 / fan_in)))
+
+
+def _torch_bn(sd: dict, name: str, c: int, rng, scale: float = 1.0) -> None:
+    """A batch norm as torch saves it: random affine parameters and running
+    statistics (variance in [0.5, 1.5)), and ``num_batches_tracked``."""
+    f32 = np.float32
+    sd[f"{name}.weight"] = torch.from_numpy(
+        (scale * rng.uniform(0.8, 1.2, c)).astype(f32))
+    sd[f"{name}.bias"] = torch.from_numpy(rng.normal(0, 0.05, c).astype(f32))
+    sd[f"{name}.running_mean"] = torch.from_numpy(
+        rng.normal(0, 0.1, c).astype(f32))
+    sd[f"{name}.running_var"] = torch.from_numpy(
+        rng.uniform(0.5, 1.5, c).astype(f32))
+    sd[f"{name}.num_batches_tracked"] = torch.tensor(1000)
+
+
+def torchvision_resnet50(seed: int, fc: bool = True) -> dict:
+    """A seeded ``state_dict`` with torchvision ResNet-50's key names and
+    shapes, built from its stage layout (no torchvision on the card's
+    host): He-normal convs, random batch norms (the last of each block
+    scaled by 0.3, so that activations do not grow a block), ``fc``."""
+    rng = np.random.default_rng(seed)
+    sd = {"conv1.weight": _he(rng, 64, 3, 7, 7)}
+    _torch_bn(sd, "bn1", 64, rng)
+    inplanes = 64
+    for s, (planes, blocks) in enumerate(RESNET50_STAGES):
+        for b in range(blocks):
+            p = f"layer{s + 1}.{b}"
+            for i, (cout, cin, k) in enumerate(
+                    ((planes, inplanes, 1), (planes, planes, 3),
+                     (planes * 4, planes, 1)), 1):
+                sd[f"{p}.conv{i}.weight"] = _he(rng, cout, cin, k, k)
+                _torch_bn(sd, f"{p}.bn{i}", cout, rng, 0.3 if i == 3 else 1.0)
+            if b == 0:
+                sd[f"{p}.downsample.0.weight"] = _he(rng, planes * 4,
+                                                     inplanes, 1, 1)
+                _torch_bn(sd, f"{p}.downsample.1", planes * 4, rng)
+            inplanes = planes * 4
+    if fc:
+        sd["fc.weight"] = _he(rng, 1000, 2048)
+        sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def torchvision_vgg16(seed: int) -> dict:
+    """A seeded ``state_dict`` with torchvision VGG16's key names and
+    shapes: the 13 ``features`` convs He-normal with small biases, the
+    ``classifier`` at its shapes (zeros: nothing reads it)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for idx, cin, cout in VGG16_FEATURES:
+        sd[f"features.{idx}.weight"] = _he(rng, cout, cin, 3, 3)
+        sd[f"features.{idx}.bias"] = torch.from_numpy(
+            rng.normal(0, 0.01, cout).astype(np.float32))
+    for idx, cin, cout in ((0, 25088, 4096), (3, 4096, 4096),
+                           (6, 4096, 1000)):
+        sd[f"classifier.{idx}.weight"] = torch.zeros(cout, cin)
+        sd[f"classifier.{idx}.bias"] = torch.zeros(cout)
+    return sd
+
+
+def mmdet_retinanet_r50(seed: int, num_classes: int, box_version: int,
+                        channels: int = 256, anchors: int = 9) -> dict:
+    """A seeded mmdet RetinaNet-R50 ``state_dict``: torchvision's backbone
+    under ``backbone.``, ``neck.lateral_convs`` / ``fpn_convs`` (the two
+    ``add_extra_convs='on_input'`` convs last), the head's four
+    ``{cls,reg}_convs`` a tower and ``retina_cls`` / ``retina_reg``; the
+    class bias spread around -1, so that the detector detects."""
+    rng = np.random.default_rng(seed)
+    sd = {f"backbone.{k}": v
+          for k, v in torchvision_resnet50(seed, fc=False).items()}
+
+    def conv(name, cout, cin, k):
+        sd[f"{name}.weight"] = _he(rng, cout, cin, k, k)
+        sd[f"{name}.bias"] = torch.zeros(cout)
+
+    for i, cin in enumerate((512, 1024, 2048)):
+        conv(f"neck.lateral_convs.{i}.conv", channels, cin, 1)
+        conv(f"neck.fpn_convs.{i}.conv", channels, channels, 3)
+    conv("neck.fpn_convs.3.conv", channels, 2048, 3)
+    conv("neck.fpn_convs.4.conv", channels, channels, 3)
+    for tower in ("cls", "reg"):
+        for i in range(4):
+            conv(f"bbox_head.{tower}_convs.{i}.conv", channels, channels, 3)
+    conv("bbox_head.retina_cls", anchors * num_classes, channels, 3)
+    conv("bbox_head.retina_reg", anchors * box_version, channels, 3)
+    sd["bbox_head.retina_cls.bias"] = torch.from_numpy(
+        rng.normal(-1.0, 1.0, anchors * num_classes).astype(np.float32))
+    return sd
+
+
+def torchvision_to_port_name(key: str) -> str | None:
+    """torchvision's ResNet key -> the port's backbone key, or None for
+    what the backbone has no place for (``fc.*``, ``num_batches_tracked``).
+    Written here from the two layouts, apart from ``port_torchvision_
+    weights``, so that the gates do not take the porter's word."""
+    if key.startswith("fc.") or key.endswith("num_batches_tracked"):
+        return None
+    key = key.replace(".downsample.0.", ".downsample_conv.")
+    key = key.replace(".downsample.1.", ".downsample_bn.")
+    if key.startswith("layer"):
+        stage, block, rest = key.split(".", 2)
+        key = f"{stage}_{block}.{rest}"
+    return key
+
+
+def write_synthetic_as_coco(root: str, cfg: dict) -> str:
+    """The 16 images ``test.py --synthetic`` evaluates, with their boxes, as
+    a COCO-style set (PNG), and a config over it as ``data.test``, for
+    ``analyze_results`` to draw on. Returns the config's path."""
+    from PIL import Image
+
+    h, w = cfg["img_size"]
+    bv = cfg["model"]["box_version"]
+    ds = make_synthetic_dataset(n_images=PRETRAINED_VAL_IMAGES,
+                                num_classes=cfg["model"]["num_classes"],
+                                img_size=(h, w), box_version=bv)
+    os.makedirs(os.path.join(root, "images"))
+    images, annotations = [], []
+    for i in range(len(ds)):
+        item = ds[i]
+        name = f"{item['img_id']:04d}.png"
+        Image.fromarray(item["image"]).save(
+            os.path.join(root, "images", name))
+        images.append({"id": item["img_id"], "file_name": name,
+                       "width": w, "height": h})
+        for box, label in zip(item["boxes"], item["labels"]):
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": item["img_id"],
+                "category_id": int(label) + 1,
+                "bbox": [float(v) for v in box], "iscrowd": 0})
+    ann = os.path.join(root, "test.json")
+    with open(ann, "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": c + 1, "name": f"class_{c}"}
+                                  for c in range(cfg["model"]
+                                                 ["num_classes"])]}, f)
+    config = os.path.join(root, "analysis_config.py")
+    with open(config, "w") as f:
+        f.write(f"_base_ = [{CONFIG!r}]\n"
+                f"data = dict(test=dict(ann_file={ann!r}, "
+                f"img_prefix={os.path.join(root, 'images') + '/'!r}))\n")
+    return config
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def _same_numbers(card, cpu, what: str) -> float:
+    """Integers equal and floats within ``TOOL_TOLERANCE`` between the two
+    devices' outputs (dicts, arrays, numbers); returns the largest float
+    difference."""
+    if isinstance(card, dict):
+        if card.keys() != cpu.keys():
+            raise AssertionError(f"{what}: keys {card.keys()} vs {cpu.keys()}")
+        return max([_same_numbers(card[k], cpu[k], f"{what}.{k}")
+                    for k in card] or [0.0])
+    a, b = np.asarray(card), np.asarray(cpu)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{what}: {a.shape} {a.dtype} vs {b.shape} "
+                             f"{b.dtype}")
+    if a.dtype.kind in "iub":
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{what}: the card's {a} vs the CPU's {b}")
+        return 0.0
+    nan = np.isnan(a)
+    if not np.array_equal(nan, np.isnan(b)):
+        raise AssertionError(f"{what}: NaN on one device only")
+    diff = float(np.abs(a[~nan] - b[~nan]).max(initial=0.0))
+    if not diff <= TOOL_TOLERANCE:
+        raise AssertionError(f"{what}: the card and the CPU differ by {diff}")
+    return diff
+
+
+def jittered_ground_truth(arrays: dict, seed: int) -> dict:
+    """Raw result arrays whose detections are each image's ground truth,
+    centres and sizes jittered by up to 3 degrees, with seeded scores: a
+    set the tools match (a detector at random weights finds nothing)."""
+    rng = np.random.default_rng(seed)
+    out = dict(arrays)
+    n = min(arrays["boxes"].shape[1], arrays["gt_boxes"].shape[1])
+    boxes = np.zeros_like(arrays["boxes"])
+    boxes[:, :n] = arrays["gt_boxes"][:, :n]
+    boxes[:, :, :4] += rng.uniform(-3.0, 3.0, boxes[:, :, :4].shape)
+    boxes[:, :, 0] = np.mod(boxes[:, :, 0], 360.0)
+    boxes[:, :, 2:4] = np.abs(boxes[:, :, 2:4])
+    out["boxes"] = boxes.astype(np.float32)
+    out["labels"] = np.zeros_like(arrays["labels"])
+    out["labels"][:, :n] = arrays["gt_labels"][:, :n]
+    out["valid"] = np.zeros_like(arrays["valid"])
+    out["valid"][:, :n] = arrays["gt_mask"][:, :n]
+    out["scores"] = rng.uniform(0.05, 1.0, arrays["scores"].shape).astype(
+        np.float32)
+    return out
+
+
+def run_analysis_tools(tmp: str, raw_npz: str, analysis_cfg: str,
+                       num_classes: int, plotting: bool) -> dict:
+    """The four tools on the raw file, with ``--device cuda`` and again
+    with ``--device cpu``: integer outputs equal, floats within
+    ``TOOL_TOLERANCE``, each tool's seconds. Without matplotlib the two
+    plotting tools run their numeric part (the functions their ``main``
+    calls, with its defaults)."""
+    arrays = load_raw_results(raw_npz)
+    tmp = os.path.join(tmp, os.path.basename(raw_npz)[:-4])
+    out = {}
+    for device in ("cuda", "cpu"):
+        run = {}
+        d = os.path.join(tmp, f"tools_{device}")
+        if plotting:
+            _, run["confusion_matrix_s"] = _timed(lambda: _said(
+                lambda: confusion_cli.main([CONFIG, raw_npz, d, "--device",
+                                            device])))
+            run["confusion_matrix"] = np.load(
+                os.path.join(d, "confusion_matrix.npy"))
+            _, run["coco_error_analysis_s"] = _timed(lambda: _said(
+                lambda: error_cli.main([CONFIG, raw_npz, d, "--device",
+                                        device])))
+            with open(os.path.join(d, "error_analysis.json")) as f:
+                run["coco_error_analysis"] = json.load(f)
+        else:
+            run["confusion_matrix"], run["confusion_matrix_s"] = _timed(
+                lambda: confusion_matrix(arrays, num_classes, device=device))
+            ladder, run["coco_error_analysis_s"] = _timed(
+                lambda: error_cli.decompose(arrays, num_classes, "unbiased",
+                                            100, device))
+            run["coco_error_analysis"] = {"ps": ladder["ps"],
+                                          "valid": ladder["valid"]}
+        os.makedirs(tmp, exist_ok=True)
+        recall_json = os.path.join(tmp, f"recall_{device}.json")
+        _, run["occluded_recall_s"] = _timed(lambda: _said(
+            lambda: recall_cli.main([raw_npz, "--device", device, "--out",
+                                     recall_json])))
+        with open(recall_json) as f:
+            run["occluded_recall"] = json.load(f)
+        gallery = os.path.join(tmp, f"gallery_{device}")
+        _, run["analyze_results_s"] = _timed(lambda: _said(
+            lambda: analyze_cli.main([analysis_cfg, raw_npz, gallery,
+                                      "--device", device, "--topk", "4"])))
+        run["gallery"] = sorted(
+            os.path.relpath(os.path.join(r, f), gallery)
+            for r, _, fs in os.walk(gallery) for f in fs)
+        run["per_image_map"] = per_image_scores(arrays, num_classes,
+                                                device=device)
+        out[device] = run
+    card, cpu = out["cuda"], out["cpu"]
+    diffs = {k: _same_numbers(card[k], cpu[k], k) for k in (
+        "confusion_matrix", "coco_error_analysis", "occluded_recall",
+        "per_image_map")}
+    if card["gallery"] != cpu["gallery"] or len(card["gallery"]) != 8:
+        raise AssertionError(f"galleries {card['gallery']} vs "
+                             f"{cpu['gallery']}")
+    from PIL import Image
+
+    for name in card["gallery"]:
+        a, b = (np.asarray(Image.open(os.path.join(tmp, f"gallery_{dev}",
+                                                   name)))
+                for dev in ("cuda", "cpu"))
+        if not np.array_equal(a, b):
+            raise AssertionError(f"the galleries' {name} differ")
+    cm = card["confusion_matrix"]
+    return {"seconds": {dev: {k: v for k, v in out[dev].items()
+                              if k.endswith("_s")} for dev in out},
+            "max_float_diff_card_vs_cpu": diffs,
+            "confusion_matrix_on_diagonal": int(np.trace(
+                cm[:num_classes, :num_classes])),
+            "confusion_matrix_total": int(cm.sum()),
+            "occluded_recall": card["occluded_recall"],
+            "per_image_map_mean": float(card["per_image_map"].mean()),
+            "gallery": card["gallery"]}
+
+
+def phase_pretrained(seed: int, reps: int) -> tuple[int, dict]:
+    """Pretrained weights and result analysis at full width. (1) A seeded
+    torchvision-layout ResNet-50 ``state_dict`` (``fc`` and
+    ``num_batches_tracked`` included) written to a ``.pth``; (2) the rotated
+    config trains ``PRETRAINED_STEPS`` steps through ``train.main
+    --load-backbone``: the first step finds the file's tensors in the
+    backbone, the last leaves the frozen stem and stage 1 and every batch
+    norm's statistics as the file has them, every loss finite, K1 once a
+    step at (256, 98208); (3) ``test.main --synthetic --save-raw``, K1 once
+    a val image, the raw file in the JAX package's layout; (4) the four
+    analysis tools on it on the card and on the CPU, alike; (5) a seeded
+    mmdet RetinaNet-R50 checkpoint through ``convert_reference_checkpoint``
+    and ``init_detector``: ``PRETRAINED_REQUESTS`` requests, K1 once each,
+    predictions bitwise those of the detector loaded straight from
+    ``port_mmdet_retinanet``; (6) the SSD config from a seeded torchvision
+    VGG16 ``state_dict``, ``PRETRAINED_SSD_STEPS`` steps: the 13 convs the
+    file's, conv6, conv7 and the L2Norm scale their initialisation, K1 once
+    a step at (256, 49056) D=4. Returns K1's launches over (2), (3), (5)
+    and (6) and its check on the last assignment input of (2)."""
+    import importlib.util
+
+    device = resolve_device()
+    torch.backends.cudnn.deterministic = True
+    cfg = load_config(CONFIG)
+    classes, box_version = cfg["model"]["num_classes"], \
+        cfg["model"]["box_version"]
+    plotting = importlib.util.find_spec("matplotlib") is not None
+    seconds = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        # (1) the input file
+        t0 = time.perf_counter()
+        tv = torchvision_resnet50(seed)
+        pth = os.path.join(tmp, "resnet50.pth")
+        torch.save(tv, pth)
+        seconds["write_resnet50_pth"] = time.perf_counter() - t0
+        from_file = {torchvision_to_port_name(k): v for k, v in tv.items()
+                     if torchvision_to_port_name(k)}
+
+        # (2) train from it; the head's class bias is spread before the
+        # first step, so that the evaluation of (3) has detections
+        seen = {}
+        real_build = train_cli.build_training
+
+        def capturing(*args, **kwargs):
+            t0 = time.perf_counter()
+            parts = real_build(*args, **kwargs)
+            torch.cuda.synchronize()
+            seen["build_s"] = time.perf_counter() - t0
+            model, optimizer = parts[0], parts[3]
+            seen["before"] = {k: v.clone() for k, v in
+                              model.backbone.state_dict().items()}
+            ema = optimizer.ema_state_dict()
+            seen["ema"] = None if ema is None else {
+                k: v.clone() for k, v in ema.items()}
+            with torch.no_grad():
+                bias = model.bbox_head.retina_cls.bias
+                bias.copy_(torch.from_numpy(np.random.default_rng(
+                    seed).normal(-1.0, 1.0, bias.shape).astype(np.float32)))
+            return parts
+
+        work = os.path.join(tmp, "work")
+        train_cli.build_training = capturing
+        try:
+            run = drive_trainer(CONFIG, PRETRAINED_STEPS, TRAIN_BATCH, seed,
+                                extra=["--load-backbone", pth], work=work)
+        finally:
+            train_cli.build_training = real_build
+        seconds["train_main"] = run["seconds"]
+        seconds["build_and_load"] = seen["build_s"]
+        model, det_cfg, _, optimizer, _ = run["parts"]
+        assert_full_width_training(run["cfg"], model, det_cfg, optimizer,
+                                   device)
+        if f"loaded resnet50 backbone from {pth}" not in run["said"]:
+            raise AssertionError(f"the trainer said {run['said']!r}")
+        before = seen["before"]
+        if set(from_file) != set(before):
+            raise AssertionError(
+                "the file's tensors and the backbone's differ: "
+                f"{sorted(set(from_file) ^ set(before))[:6]}")
+        for k, v in from_file.items():
+            if not torch.equal(before[k].cpu(), v.to(before[k].dtype)):
+                raise AssertionError(f"backbone.{k} is not the file's before "
+                                     "the first step")
+        if seen["ema"] is not None:
+            for k, v in from_file.items():
+                if f"backbone.{k}" in seen["ema"] and not torch.equal(
+                        seen["ema"][f"backbone.{k}"].cpu(), v):
+                    raise AssertionError(f"the EMA shadow of backbone.{k} "
+                                         "did not start from the file's")
+        after = model.backbone.state_dict()
+        kept = sorted(k for k in from_file if f"backbone.{k}" in
+                      optimizer.frozen_names
+                      or k.endswith(("running_mean", "running_var")))
+        if not {"conv1.weight", "layer1_2.conv3.weight",
+                "layer4_2.bn3.running_var"} <= set(kept) \
+                or "layer2_0.conv1.weight" in kept:
+            raise AssertionError(f"frozen: {kept[:8]}...")
+        for k in kept:
+            if not torch.equal(after[k].cpu(), from_file[k]):
+                raise AssertionError(f"backbone.{k} moved from the file's")
+        stage2_moved = not torch.equal(after["layer2_0.conv1.weight"].cpu(),
+                                       from_file["layer2_0.conv1.weight"])
+        ema_checked = seen["ema"] is not None
+        if run["launches"] != PRETRAINED_STEPS or optimizer.count \
+                != PRETRAINED_STEPS:
+            raise AssertionError(f"{run['launches']} K1 launches over "
+                                 f"{optimizer.count} steps")
+        want_call = [list(ASSIGN_SHAPE[::2]), list(ASSIGN_SHAPE[1:])]
+        if run["calls"] != [want_call] * PRETRAINED_STEPS:
+            raise AssertionError(f"K1 was called at {run['calls']}")
+        gt_flat, anchors = run["last_inputs"][ASSIGN_SHAPE[:2]]
+        on_input = {"input": "pretrained: the last assignment input of "
+                             "training from a loaded backbone",
+                    **check_kernel(KERNELS[0], gt_flat, anchors, reps,
+                                   identical=False)}
+        if not on_input["bitwise_equal"]:
+            raise AssertionError(f"K1 differs from its plain version by "
+                                 f"{on_input['max_abs_err']}")
+        train_losses = [r["loss"] for r in run["steps"]]
+        del model, optimizer, run, seen, before, after
+
+        # (3) the raw results
+        raw_npz = os.path.join(tmp, "raw.npz")
+        nms_calls = []
+        nms_module.sph2pob_iou_pairwise = _recording(sph2pob_iou_pairwise,
+                                                     nms_calls)
+        try:
+            sph2pob_iou_pairwise.launches = 0
+            said, seconds["test_main"] = _timed(lambda: _said(
+                lambda: test_cli.main([CONFIG, os.path.join(work, "ckpts"),
+                                       "--synthetic", "--save-raw",
+                                       raw_npz])))
+            torch.cuda.synchronize()
+            test_launches = sph2pob_iou_pairwise.launches
+        finally:
+            nms_module.sph2pob_iou_pairwise = sph2pob_iou_pairwise
+        if test_launches != PRETRAINED_VAL_IMAGES or len(nms_calls) \
+                != PRETRAINED_VAL_IMAGES or any(
+                    a != b or a[0] > 1000 or a[1] != box_version
+                    for a, b in nms_calls):
+            raise AssertionError(f"{test_launches} K1 launches, NMS calls "
+                                 f"{nms_calls}")
+        if f"raw results -> {raw_npz}" not in said:
+            raise AssertionError(f"the test CLI said {said!r}")
+        arrays = load_raw_results(raw_npz)
+        if set(arrays) != RAW_KEYS or {v.shape[0] for v in arrays.values()} \
+                != {PRETRAINED_VAL_IMAGES}:
+            raise AssertionError(
+                f"raw file: { {k: v.shape for k, v in arrays.items()} }")
+        detections = int(arrays["valid"].sum())
+        if not (arrays["scores"][arrays["valid"]] >= 0.3).any():
+            raise AssertionError(f"{detections} detections, none above "
+                                 "0.3: the tools would compare nothing")
+        raw_bytes = os.path.getsize(raw_npz)
+        shutil.rmtree(os.path.join(work, "ckpts"))
+
+        # (4) the analysis tools, on the card and on the CPU
+        if not plotting:
+            emit({"phase": "pretrained_plots", "matplotlib_importable": False,
+                  "note": "matplotlib is not installed on this host: "
+                          "confusion_matrix and coco_error_analysis run "
+                          "their numeric part here, on the card and on the "
+                          "CPU; their plots are tested on the CPU only "
+                          "(tests/test_torch_analysis.py)"})
+        analysis_cfg, seconds["write_analysis_set"] = _timed(
+            lambda: write_synthetic_as_coco(os.path.join(tmp, "coco"), cfg))
+        tools = {"test_cli_raw": run_analysis_tools(
+            tmp, raw_npz, analysis_cfg, classes, plotting)}
+        matched_npz = os.path.join(tmp, "ground_truth_jittered.npz")
+        save_raw_results(matched_npz, jittered_ground_truth(arrays, seed))
+        tools["ground_truth_jittered"] = run_analysis_tools(
+            tmp, matched_npz, analysis_cfg, classes, plotting)
+        if not tools["ground_truth_jittered"]["confusion_matrix_on_diagonal"]:
+            raise AssertionError("the jittered ground truth matches nothing")
+
+        # (5) an mmdet checkpoint, converted and served
+        sd = mmdet_retinanet_r50(seed + 1, classes, box_version)
+        ref = os.path.join(tmp, "ref_epoch_3.pth")
+        torch.save({"meta": {"epoch": 3}, "state_dict": sd}, ref)
+        said, seconds["convert"] = _timed(lambda: _said(
+            lambda: convert_cli.main([ref, os.path.join(tmp, "conv",
+                                                        "model.npz"),
+                                      "--depth", "50"])))
+        (npz,) = os.listdir(os.path.join(tmp, "conv"))
+        npz = os.path.join(tmp, "conv", npz)
+        if f"converted -> {npz}" not in said:
+            raise AssertionError(f"the converter said {said!r}")
+        meta = load_published(npz)[2]
+        if meta != {"source": "ref_epoch_3.pth", "epoch": 3}:
+            raise AssertionError(f"the published meta is {meta}")
+        det, seconds["init_detector_from_npz"] = _timed(
+            lambda: init_detector(CONFIG, npz))
+        assert_full_width(det)
+        rng = np.random.default_rng(seed)
+        h, w = det.cfg["img_size"]
+        images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                  for _ in range(PRETRAINED_REQUESTS)]
+        sph2pob_iou_pairwise.launches = 0
+        served, seconds["requests"] = _timed(
+            lambda: [inference_detector(det, im) for im in images])
+        torch.cuda.synchronize()
+        convert_launches = sph2pob_iou_pairwise.launches
+        if convert_launches != PRETRAINED_REQUESTS:
+            raise AssertionError(f"{convert_launches} K1 launches over "
+                                 f"{PRETRAINED_REQUESTS} requests")
+        direct = init_detector(CONFIG, seed=seed)
+        direct.model.load_state_dict(port_mmdet_retinanet(sd, depth=50))
+        want = [inference_detector(direct, im) for im in images]
+        for got_r, want_r in zip(served, want):
+            if len(got_r) != len(want_r) or not all(
+                    a.shape == b.shape and np.array_equal(a, b)
+                    for a, b in zip(got_r, want_r)):
+                raise AssertionError("the converted checkpoint predicts "
+                                     "otherwise than port_mmdet_retinanet's")
+        served_dets = [int(sum(len(c) for c in r)) for r in served]
+        del det, direct, sd
+
+        # (6) SSD from a torchvision VGG16
+        vgg = torchvision_vgg16(seed + 2)
+        vgg_pth = os.path.join(tmp, "vgg16.pth")
+        _, seconds["write_vgg16_pth"] = _timed(lambda: torch.save(vgg,
+                                                                 vgg_pth))
+        convs = {f"conv{b + 1}_{i + 1}": idx for (b, i), (idx, _, _) in zip(
+            [(b, i) for b, (n, _) in enumerate(
+                ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512)))
+             for i in range(n)], VGG16_FEATURES)}
+        ssd_seen = {}
+
+        def capturing_ssd(cfg_, *args, **kwargs):
+            parts = real_build(cfg_, *args, **kwargs)
+            bb = parts[0].backbone
+            fresh = get_family(cfg_).build(cfg_)[0]
+            fresh.init_weights(torch.Generator().manual_seed(seed))
+            ssd_seen["convs_from_file"] = all(
+                torch.equal(getattr(bb, name).weight.cpu(),
+                            vgg[f"features.{idx}.weight"])
+                and torch.equal(getattr(bb, name).bias.cpu(),
+                                vgg[f"features.{idx}.bias"])
+                for name, idx in convs.items())
+            ssd_seen["rest_initialised"] = all(
+                torch.equal(a.cpu(), b) for name in ("conv6", "conv7",
+                                                     "l2_norm")
+                for a, b in zip(getattr(bb, name).state_dict().values(),
+                                getattr(fresh.backbone,
+                                        name).state_dict().values()))
+            return parts
+
+        train_cli.build_training = capturing_ssd
+        try:
+            ssd = drive_trainer(SSD_CONFIG, PRETRAINED_SSD_STEPS,
+                                SSD_TRAIN_BATCH, seed,
+                                extra=["--load-backbone", vgg_pth])
+        finally:
+            train_cli.build_training = real_build
+        seconds["ssd_train_main"] = ssd["seconds"]
+        assert_full_width_ssd(ssd["cfg"], ssd["parts"][0], ssd["parts"][1])
+        if f"loaded vgg16 backbone from {vgg_pth}" not in ssd["said"] \
+                or len(convs) != 13 or not ssd_seen["convs_from_file"] \
+                or not ssd_seen["rest_initialised"]:
+            raise AssertionError(f"the SSD's backbone: {ssd_seen}")
+        want_call = [list(SSD_ASSIGN_SHAPE[::2]), list(SSD_ASSIGN_SHAPE[1:])]
+        if ssd["launches"] != PRETRAINED_SSD_STEPS or ssd["calls"] \
+                != [want_call] * PRETRAINED_SSD_STEPS:
+            raise AssertionError(f"{ssd['launches']} K1 launches, calls "
+                                 f"{ssd['calls']}")
+        ssd_losses = [r["loss"] for r in ssd["steps"]]
+        del ssd
+
+    launches = (PRETRAINED_STEPS + test_launches + convert_launches
+                + PRETRAINED_SSD_STEPS)
+    emit({"phase": "pretrained", "config": os.path.relpath(CONFIG, ROOT),
+          "ssd_config": os.path.relpath(SSD_CONFIG, ROOT),
+          "seconds": seconds, "train_losses": train_losses,
+          "ema_checked": ema_checked, "stage2_moved": stage2_moved,
+          "raw_file_bytes": raw_bytes, "val_detections": detections,
+          "tools": tools, "matplotlib_importable": plotting,
+          "served_detections": served_dets, "ssd_losses": ssd_losses,
+          "kernel_launches": {"train": PRETRAINED_STEPS,
+                              "test_save_raw": test_launches,
+                              "converted_requests": convert_launches,
+                              "ssd_train": PRETRAINED_SSD_STEPS,
+                              "whole_phase": launches},
+          "kernel_on_assignment_input": on_input})
+    return launches, on_input
+
+
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3167,11 +3792,13 @@ def main(argv=None) -> int:
     launches["sph2pob_iou_pairwise"] += phase_export(args.seed, args.reps)
     trained, on_input_assign = phase_train_input(args.seed, args.reps)
     launches["sph2pob_iou_pairwise"] += trained
+    trained, on_pretrained_assign = phase_pretrained(args.seed, args.reps)
+    launches["sph2pob_iou_pairwise"] += trained
     # K1 on the inputs its paths gave it, beside its seeded shapes
     shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input,
                                        on_iou_input, on_ssd_input,
                                        *on_frcnn_input, on_val_nms_input,
-                                       on_input_assign]
+                                       on_input_assign, on_pretrained_assign]
     idle = [k.name for k in KERNELS if launches[k.name] < 1]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

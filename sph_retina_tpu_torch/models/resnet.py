@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -187,3 +188,50 @@ class ResNet(nn.Module):
             if stage in self.out_indices:
                 outs.append(x)
         return tuple(outs)
+
+
+def as_cpu_tensor(value) -> torch.Tensor:
+    """A state-dict value (a tensor, or anything numpy takes) as a detached
+    CPU tensor."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu()
+    return torch.from_numpy(np.array(value))
+
+
+def port_torchvision_weights(state_dict: dict, depth: int = 50) -> dict:
+    """A torchvision ResNet / ResNeXt ``state_dict`` (name -> tensor or
+    array) -> the ``state_dict`` of :class:`ResNet` of that depth.
+
+    ``layer1.0.conv2`` becomes ``layer1_0.conv2`` and ``layer1.0.downsample.
+    0`` / ``.1`` become ``layer1_0.downsample_conv`` / ``downsample_bn``; a
+    batch norm's ``weight``, ``bias``, ``running_mean`` and ``running_var``
+    go into the :class:`FrozenBatchNorm` of the same name. Kernels stay
+    OIHW, as in torchvision, grouped ones (ResNeXt) with I = in_channels /
+    groups in both. ``num_batches_tracked`` and ``fc.*`` are not read.
+    """
+    kind, stage_blocks = ARCH_SETTINGS[depth]
+    n_convs = 3 if kind == "bottleneck" else 2
+    out: dict = {}
+
+    def take(src: str, dst: str, leaves) -> None:
+        for leaf in leaves:
+            out[f"{dst}.{leaf}"] = as_cpu_tensor(state_dict[f"{src}.{leaf}"])
+
+    def conv(src: str, dst: str) -> None:
+        take(src, dst, ("weight",))
+
+    def bn(src: str, dst: str) -> None:
+        take(src, dst, ("weight", "bias", "running_mean", "running_var"))
+
+    conv("conv1", "conv1")
+    bn("bn1", "bn1")
+    for stage, n_blocks in enumerate(stage_blocks):
+        for b in range(n_blocks):
+            src, dst = f"layer{stage + 1}.{b}", f"layer{stage + 1}_{b}"
+            for i in range(1, n_convs + 1):
+                conv(f"{src}.conv{i}", f"{dst}.conv{i}")
+                bn(f"{src}.bn{i}", f"{dst}.bn{i}")
+            if f"{src}.downsample.0.weight" in state_dict:
+                conv(f"{src}.downsample.0", f"{dst}.downsample_conv")
+                bn(f"{src}.downsample.1", f"{dst}.downsample_bn")
+    return out

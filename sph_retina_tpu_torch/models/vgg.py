@@ -9,8 +9,8 @@ Sub-module names follow the variables of the JAX package's Flax modules
 (``conv1_1`` ... ``conv5_3``, ``l2_norm``, ``conv6``, ``conv7``,
 ``extra_{i}_reduce``, ``extra_{i}_conv``), so that ``from_flax`` is a
 mechanical rename; the L2Norm's Flax ``scale`` is its ``weight``.
-Loading torchvision's VGG16 weights (``--load-backbone``) is not part of
-this package yet.
+``port_torchvision_vgg16`` maps torchvision's VGG16 ``features`` onto the
+13 convs (``--load-backbone``).
 """
 
 from __future__ import annotations
@@ -21,10 +21,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .resnet import Conv2d
+from .resnet import Conv2d, as_cpu_tensor
 
 # VGG16: (conv count, channels) a block, a pool after each
 VGG16_BLOCKS = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
+# torchvision vgg16 ``features`` indices of the 13 conv layers
+_TV_VGG16_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
 
 
 class L2Norm(nn.Module):
@@ -73,6 +75,24 @@ class SSDVGG(nn.Module):
         x = F.relu(self.conv7(x))
         feats.append(x)
         return tuple(feats)
+
+
+def port_torchvision_vgg16(state_dict: dict) -> dict:
+    """torchvision VGG16 ``features.*`` conv weights -> the ``state_dict``
+    entries of :class:`SSDVGG`'s 13 convs (``conv1_1`` ... ``conv5_3``).
+
+    Only those transfer, as mmdet's SSDVGG loads them: ``conv6``, ``conv7``
+    and the L2Norm scale keep their initialisation. Kernels stay OIHW.
+    """
+    out: dict = {}
+    idx = iter(_TV_VGG16_CONV_IDX)
+    for b, (n_convs, _) in enumerate(VGG16_BLOCKS):
+        for i in range(n_convs):
+            k = next(idx)
+            for leaf in ("weight", "bias"):
+                out[f"conv{b + 1}_{i + 1}.{leaf}"] = as_cpu_tensor(
+                    state_dict[f"features.{k}.{leaf}"])
+    return out
 
 
 class SSDNeck(nn.Module):

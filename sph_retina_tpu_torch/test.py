@@ -7,12 +7,14 @@
 config's ``data.test`` split is evaluated (``--synthetic``: 16 synthetic
 images) with COCO-style spherical AP; the float metrics are printed as JSON
 and written to ``--out``. ``--ema`` evaluates the EMA shadow weights of a
-checkpoint trained with them. Runs on the CUDA device unless ``--device
-cpu`` is given.
+checkpoint trained with them. ``--save-raw NPZ`` writes the padded result
+arrays an image (``engine/analysis.py``, the JAX package's layout), the
+input of ``confusion_matrix``, ``coco_error_analysis``, ``occluded_recall``
+and ``analyze_results``. Runs on the CUDA device unless ``--device cpu`` is
+given.
 
 Not available in this package yet, and raising ``NotImplementedError`` by
-name: ``--save-raw`` (the raw result arrays of the analysis tools) and
-``--launcher`` (multi-process evaluation).
+name: ``--launcher`` (multi-process evaluation).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import json
 import sys
 
 from .data import DataLoader, SphPipeline, make_synthetic_dataset
+from .engine.analysis import save_raw_results
 from .engine.builder import build_datasets, build_tx
 from .engine.evaluator import evaluate_dataset
 from .engine.runner import load_checkpoint
@@ -40,7 +43,9 @@ def parse_args(argv=None):
     p.add_argument("--iou-backend", default="sph2pob_efficient",
                    help="spherical IoU backend used for det-gt matching")
     p.add_argument("--out", default=None, help="write results JSON here")
-    p.add_argument("--save-raw", default=None, metavar="NPZ")
+    p.add_argument("--save-raw", default=None, metavar="NPZ",
+                   help="write the padded raw result arrays (input of the "
+                        "analysis tools)")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--ema", action="store_true",
                    help="evaluate with the EMA shadow weights")
@@ -81,9 +86,6 @@ def load_for_eval(cfg: dict, checkpoint: str, device, ema: bool = False):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.save_raw:
-        raise NotImplementedError(
-            "--save-raw is not available in this package yet")
     if args.launcher != "none":
         raise NotImplementedError(
             f"--launcher {args.launcher} is not available in this package yet")
@@ -95,7 +97,12 @@ def main(argv=None) -> int:
     print(f"loaded checkpoint at step {step}")
     results = evaluate_dataset(
         model, det_cfg, loader, backend=args.iou_backend,
-        predict=get_family(cfg).predict_fn(model, det_cfg))
+        predict=get_family(cfg).predict_fn(model, det_cfg),
+        return_raw=bool(args.save_raw))
+    if args.save_raw:
+        results, raw = results
+        save_raw_results(args.save_raw, raw)
+        print(f"raw results -> {args.save_raw}")
     summary = {k: v for k, v in results.items() if isinstance(v, float)}
     print(json.dumps(summary, indent=2))
     if args.out:

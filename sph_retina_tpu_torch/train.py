@@ -20,9 +20,13 @@ there, ``--resume-from PATH`` from a given one (a checkpoint file or
 directory): the model, the optimiser and the train step's generator are
 restored, and training goes on at the next step.
 
+``--load-backbone PATH`` starts the backbone from a torchvision checkpoint
+(``torchvision://resnet50`` in the reference's configs): a ResNet of the
+config's depth, or VGG16 for an SSD config; the optimiser and the EMA
+shadow start from the loaded weights, and a resume overrides them.
+
 Not available in this package yet, and raising ``NotImplementedError`` by
-name when asked for: ``--launcher`` (multi-process data parallelism) and
-``--load-backbone``.
+name when asked for: ``--launcher`` (multi-process data parallelism).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from .engine.builder import build_datasets, build_tx
 from .engine.evaluator import evaluate_dataset
 from .engine.runner import Checkpointer, MetricLogger, run_training
 from .engine.zoo import get_family, make_generic_train_step
+from .models.port import load_backbone
 from .utils.config import apply_overrides, load_config
 from .utils.device import resolve_device
 from .utils.env import env_string
@@ -56,7 +61,9 @@ def parse_args(argv=None):
                    help="use an in-memory synthetic dataset")
     p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="default: the CUDA device; cpu for smoke tests")
-    p.add_argument("--load-backbone", default=None, metavar="PATH")
+    p.add_argument("--load-backbone", default=None, metavar="PATH",
+                   help="torch checkpoint (torchvision layout) ported onto "
+                        "the backbone before training")
     p.add_argument("--launcher", default="none", choices=["none", "torch"])
     p.add_argument("--cfg-options", nargs="*", default=None)
     return p.parse_args(argv)
@@ -95,14 +102,29 @@ def annotation_loaders(cfg: dict):
     return loader, val_loader
 
 
+def backbone_arch(cfg: dict) -> str:
+    """The torchvision architecture of the config's backbone: its ``arch``,
+    else ``vgg16`` for an SSD, else ``resnet<depth>``."""
+    model = cfg["model"]
+    return model.get("backbone", {}).get("arch") or (
+        "vgg16" if model.get("type", "").endswith("SSD")
+        else f"resnet{model.get('backbone', {}).get('depth', 50)}")
+
+
 def build_training(cfg: dict, device: torch.device, seed: int = 0,
-                   loader=None):
+                   loader=None, backbone: str | None = None):
     """(model, detector config, loader, optimiser, train step) for a config
     dict: what ``main`` runs, for callers that drive the steps themselves.
-    ``loader`` defaults to the synthetic dataset's."""
+    ``loader`` defaults to the synthetic dataset's. ``backbone``: a torch
+    checkpoint loaded into the backbone after the initialisation, before
+    the optimiser takes its copies."""
     family = get_family(cfg)
     model, det_cfg = family.build(cfg)
     model.init_weights(torch.Generator().manual_seed(seed))
+    if backbone:
+        arch = backbone_arch(cfg)
+        load_backbone(model, backbone, arch=arch)
+        print(f"loaded {arch} backbone from {backbone}")
     model = model.to(device)
     if loader is None:
         loader, _ = synthetic_loaders(cfg, seed)
@@ -123,9 +145,6 @@ def memory_interval(cfg: dict) -> int | None:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.load_backbone:
-        raise NotImplementedError(
-            "--load-backbone is not available in this package yet")
     if args.launcher != "none":
         raise NotImplementedError(
             f"--launcher {args.launcher} is not available in this package yet")
@@ -142,7 +161,7 @@ def main(argv=None) -> int:
     else:
         loader, val_loader = annotation_loaders(cfg)
     model, det_cfg, loader, optimizer, step = build_training(
-        cfg, device, args.seed, loader)
+        cfg, device, args.seed, loader, args.load_backbone)
     ckpt = Checkpointer(os.path.join(work_dir, "ckpts"))
     if args.resume_from or args.auto_resume:
         resumed = ckpt.restore(model, optimizer, args.resume_from,

@@ -26,6 +26,7 @@ the port, on the CPU.
 
 import json
 import os
+import shutil
 import sys
 
 import jax
@@ -181,6 +182,19 @@ def _equal_parts(a, b) -> dict:
                                  sb.generator.get_state())}
 
 
+@pytest.fixture
+def emptied_tmp_path(tmp_path):
+    """``tmp_path``, emptied once the test is done with it: the runs write
+    checkpoints of ~160-230 MB each there."""
+    yield tmp_path
+    for path in tmp_path.iterdir():
+        if path.is_dir():
+            shutil.rmtree(path, ignore_errors=True)
+        else:
+            path.unlink()
+
+
+@pytest.mark.usefixtures("emptied_tmp_path")
 @pytest.mark.parametrize("config", [
     "sph_rotated_retinanet_r50_fpn_120e_pandora.py",
     "sph_faster_rcnn_r18_fpn_24e_spherebench.py",
@@ -303,7 +317,8 @@ def workflow(tmp_path_factory):
             argv + ["--max-epochs", "4", "--auto-resume"]))
     finally:
         del sys.modules["torch.utils.tensorboard"]
-    return cfg, work, first, said
+    yield cfg, work, first, said
+    shutil.rmtree(tmp, ignore_errors=True)  # its checkpoints
 
 
 def _capture(fn):

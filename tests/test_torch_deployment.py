@@ -14,6 +14,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -55,7 +56,8 @@ def artifact(tmp_path_factory):
         assert export_model.main([
             CONFIG, npz, out, "--batch-size", str(BATCH), "--device", "cpu",
             "--run", image, "--cfg-options", *OPTIONS]) == 0
-    return npz, out, tmp, said.getvalue()
+    yield npz, out, tmp, said.getvalue()
+    shutil.rmtree(tmp, ignore_errors=True)  # the .npz and the artifact
 
 
 def test_deployment_metrics_equal_the_in_framework_evaluation(artifact):

@@ -25,6 +25,7 @@ The JAX network is jitted once; its losses run eagerly.
 import functools
 import json
 import os
+import shutil
 import sys
 
 import jax
@@ -570,6 +571,19 @@ def _small_cli(config, extra=()):
             "data.max_gt=6", "log_config.interval=1", *extra]
 
 
+@pytest.fixture
+def emptied_tmp_path(tmp_path):
+    """``tmp_path``, emptied once the test is done with it: the trainer
+    writes a checkpoint of ~150-230 MB there."""
+    yield tmp_path
+    for path in tmp_path.iterdir():
+        if path.is_dir():
+            shutil.rmtree(path, ignore_errors=True)
+        else:
+            path.unlink()
+
+
+@pytest.mark.usefixtures("emptied_tmp_path")
 def test_the_trainer_takes_a_step_of_the_sphere_bench_config_on_the_cpu(
         tmp_path, monkeypatch, capsys):
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)

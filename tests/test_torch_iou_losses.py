@@ -20,6 +20,7 @@ rotated-box IoU, the eager gradient ~3 s. Tolerances:
 """
 
 import json
+import shutil
 import sys
 
 import jax
@@ -258,6 +259,19 @@ def test_the_assigner_runs_every_available_backend():
         assert tuple(out.shape) == (B, G, 300) and torch.isfinite(out).all()
 
 
+@pytest.fixture
+def emptied_tmp_path(tmp_path):
+    """``tmp_path``, emptied once the test is done with it: the trainer
+    writes a checkpoint of ~150-230 MB there."""
+    yield tmp_path
+    for path in tmp_path.iterdir():
+        if path.is_dir():
+            shutil.rmtree(path, ignore_errors=True)
+        else:
+            path.unlink()
+
+
+@pytest.mark.usefixtures("emptied_tmp_path")
 def test_the_trainer_takes_two_steps_on_the_ciou_config(tmp_path,
                                                         monkeypatch, capsys):
     """The shipped Sphere-bench config (R18, decoded-box Sph2Pob-CIoU,

@@ -88,10 +88,11 @@ NOT_PORTED = {
     "boxes": {"bfov2rbfov", "geo2sph", "sph2geo", "pix2sph_box_transform",
               "sph2tan_box_transform", "tan2sph_box_transform",
               "planar2sph_boxes"},
-    "models": {"port_torchvision_weights", "port_torchvision_vgg16",
-               "load_backbone", "load_torch_state_dict",
-               "port_mmdet_retinanet"},
+    "models": set(),
     "engine": {"TrainState", "create_train_state", "shard_batch"},
+    "visualize": {"plot_curve", "plot_iou_scatter", "PerspectiveCamera",
+                  "kent_density_erp", "sample_kent", "plot_kent_density",
+                  "erp_grid_directions", "directions_to_erp_deg"},
 }
 
 

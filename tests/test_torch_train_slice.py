@@ -21,6 +21,7 @@ overlaps themselves to 1e-4).
 """
 
 import json
+import shutil
 import sys
 
 import jax
@@ -397,6 +398,19 @@ def test_to_flax_is_the_inverse_of_from_flax(slice_):
         to_flax({"backbone.conv1.weight": torch.zeros((2, 2, 2))})
 
 
+@pytest.fixture
+def emptied_tmp_path(tmp_path):
+    """``tmp_path``, emptied once the test is done with it: the trainer
+    writes a checkpoint of ~150-230 MB there."""
+    yield tmp_path
+    for path in tmp_path.iterdir():
+        if path.is_dir():
+            shutil.rmtree(path, ignore_errors=True)
+        else:
+            path.unlink()
+
+
+@pytest.mark.usefixtures("emptied_tmp_path")
 def test_trainer_cli_writes_finite_metrics(tmp_path, monkeypatch, capsys):
     # no TensorBoard writer: importing it costs ten seconds here
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
@@ -424,17 +438,19 @@ def test_trainer_cli_writes_finite_metrics(tmp_path, monkeypatch, capsys):
     # resuming works now; a resumed run across processes still refuses
     (train_cli, [CONFIG, "--synthetic", "--device", "cpu", "--resume-from",
                  "x", "--launcher", "torch"], "--launcher"),
+    # loading a backbone works now; across processes it still refuses
     (train_cli, [CONFIG, "--synthetic", "--device", "cpu", "--load-backbone",
-                 "x"], "--load-backbone"),
+                 "x", "--launcher", "torch"], "--launcher"),
     (train_cli, [CONFIG, "--synthetic", "--device", "cpu", "--launcher",
                  "torch"], "--launcher"),
-    # training on the config's annotation files works now; with a backbone
-    # to load it still refuses, before reading them
-    (train_cli, [CONFIG, "--device", "cpu", "--load-backbone", "x"],
-     "--load-backbone"),
-    # the evaluation CLI's raw results for the analysis tools
-    (test_cli, [CONFIG, "x", "--device", "cpu", "--save-raw", "raw.npz"],
-     "--save-raw"),
+    # training on the config's annotation files from a loaded backbone
+    # works now; across processes it still refuses, before reading them
+    (train_cli, [CONFIG, "--device", "cpu", "--load-backbone", "x",
+                 "--launcher", "torch"], "--launcher"),
+    # the evaluation CLI's raw results for the analysis tools work now;
+    # evaluating across processes still refuses
+    (test_cli, [CONFIG, "x", "--device", "cpu", "--save-raw", "raw.npz",
+                "--launcher", "torch"], "--launcher"),
 ], ids=["resume", "load_backbone", "launcher", "annotation_file",
         "iou_loss_of_the_config"])
 def test_trainer_cli_refuses_by_name(cli, argv, match, tmp_path):
