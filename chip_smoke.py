@@ -118,7 +118,21 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             ``port_mmdet_retinanet``); the SSD config from a seeded VGG16
             file, 2 steps (the 13 convs the file's, conv6 / conv7 / L2Norm
             initialised, K1 once a step at (256, 49056) D=4)
-18. the kernels' summary line, then the last line
+18. parallel  multi-process data parallelism on the rotated config: (a)
+            ``train.main --launcher torch`` at world 1 over NCCL (torchrun's
+            variables set in this process), 4 steps, one evaluation and a
+            checkpoint, its parameters bitwise those of ``--launcher none``,
+            the gathered evaluation's 16 images and metrics those of the
+            ungathered one, K1 once a step at (256, 98208), the checkpoint
+            restored bitwise; (b) two ranks sharing the card over gloo, each
+            a process of its own (deadline 240 s, both killed on a failure):
+            2 steps at batch 2 in fp32 (TF32 off) and one evaluation, the
+            ranks' parameters bitwise alike after every step, their update
+            within ``PARALLEL_TOLERANCE`` of one process's at batch 4 on the
+            same 8 images, K1 once a step a rank at (128, 98208), 8 images
+            after the gather's de-duplication, only rank 0 writing; the
+            gradient all-reduce's ms a step in both
+19. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
 Weights are random, made from ``--seed``; no number printed here says
@@ -138,6 +152,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -167,6 +182,7 @@ from sph_retina_tpu_torch import train as train_cli
 from sph_retina_tpu_torch.apis import inference_detector, init_detector
 from sph_retina_tpu_torch.boxes import nms as nms_module
 from sph_retina_tpu_torch.engine import evaluator, runner
+from sph_retina_tpu_torch.engine import train as engine_train
 from sph_retina_tpu_torch.engine.analysis import (
     confusion_matrix,
     load_raw_results,
@@ -1147,9 +1163,10 @@ def timed_steps(step, batch, n: int) -> dict:
 
 
 def drive_trainer(config: str, steps: int, batch: int, seed: int,
-                  extra=(), work: str | None = None) -> dict:
+                  extra=(), work: str | None = None, options=()) -> dict:
     """``train.main`` as a user starts it, one epoch of ``steps`` steps,
-    logging every step, with the arguments ``extra`` added; in the
+    logging every step, with the arguments ``extra`` and the config options
+    ``options`` added; in the
     directory ``work`` (kept), else in a temporary one. The pairwise
     kernel's launch counter is set to 0 just before and read just after;
     its calls are recorded (shapes, and the inputs of the last call of each
@@ -1185,7 +1202,7 @@ def drive_trainer(config: str, steps: int, batch: int, seed: int,
                     config, "--synthetic", "--seed", str(seed),
                     "--max-epochs", "1", "--work-dir", work, *extra,
                     "--cfg-options", f"data.n_synthetic={steps * batch}",
-                    "log_config.interval=1"])
+                    "log_config.interval=1", *options])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches = sph2pob_iou_pairwise.launches
@@ -3742,6 +3759,380 @@ def phase_pretrained(seed: int, reps: int) -> tuple[int, dict]:
     return launches, on_input
 
 
+PARALLEL_STEPS = 4        # (a): 16 images at batch 4, one evaluation of them
+PARALLEL_RANK_STEPS = 2   # (b): 8 images, 2 ranks at batch 2 (4 a step)
+PARALLEL_RANK_BATCH = 2
+PARALLEL_CHILD_S = 240.0  # (b): each rank's deadline
+# (b): the two ranks' run on the card and the one-process run on the same 8
+# images differ in their parameter update by rounding only (cuDNN picks its
+# algorithms by batch size): max|dθ_2 - dθ_1| / max|dθ_1| <=
+# PARALLEL_TOLERANCE, which tests/test_torch_parallel_ranks.py holds below
+# the gap a local normaliser leaves on the CPU (0.139 there). fp32 with
+# TF32 off (with PyTorch's default TF32 convolutions the gap was 5.7e-3),
+# and no warm-up factor: at the config's first-step rate (5e-6) the updates
+# would sit near the parameters' own rounding.
+PARALLEL_TOLERANCE = 1e-2
+PARALLEL_OPTIONS = ("bf16=False", "lr_config.warmup_ratio=1.0",
+                    "evaluation.interval=1")
+PARALLEL_SHAPE = (128, 98208, 5)  # (b): each rank's 2 images x max_gt 64
+
+# One rank of phase (b), run as ``python -c PARALLEL_CHILD ARGV_JSON OUT``:
+# the group first (gloo: NCCL refuses two ranks on one card), then
+# ``train.main`` takes it as it finds it. Prints one JSON line.
+PARALLEL_CHILD = r'''
+import hashlib, json, os, sys, time
+sys.modules["torch.utils.tensorboard"] = None
+import torch
+from sph_retina_tpu_torch import parallel, train
+from sph_retina_tpu_torch.boxes import nms
+from sph_retina_tpu_torch.engine import runner, train as engine_train
+from sph_retina_tpu_torch.models import single_stage
+from sph_retina_tpu_torch.ops.sph2pob_iou import sph2pob_iou_pairwise
+
+argv, out, timeout_s = json.loads(sys.argv[1]), sys.argv[2], float(sys.argv[3])
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.allow_tf32 = False
+calls, last, digests, writes, reduce_ms = {"assign": [], "nms": []}, {}, [], [], []
+
+def recording(site):
+    def call(boxes1, boxes2):
+        calls[site].append([list(boxes1.shape), list(boxes2.shape)])
+        if site == "assign":
+            last["input"] = (boxes1.cpu(), boxes2.cpu())
+        return sph2pob_iou_pairwise(boxes1, boxes2)
+    return call
+
+def timed_reduce(params, real=engine_train.all_reduce_gradients):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    real(params)
+    torch.cuda.synchronize()
+    reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+def counting(path, fn, real=runner._write_atomically):
+    writes.append(os.path.basename(path))
+    return real(path, fn)
+
+def digest(model):
+    h = hashlib.sha256()
+    for t in model.state_dict().values():
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+def building(*args, build=train.build_training, **kwargs):
+    parts = build(*args, **kwargs)
+    model, step = parts[0], parts[4]
+    def stepped(batch):
+        metrics = step(batch)
+        digests.append(digest(model))
+        return metrics
+    stepped.generator = step.generator
+    return (*parts[:4], stepped)
+
+single_stage.sph2pob_iou_pairwise = recording("assign")
+nms.sph2pob_iou_pairwise = recording("nms")
+engine_train.all_reduce_gradients = timed_reduce
+runner._write_atomically = counting
+train.build_training = building
+rank, world = parallel.init_distributed(
+    "torch", backend="gloo", timeout_s=timeout_s,
+    device=argv[argv.index("--device") + 1])
+try:
+    backend = torch.distributed.get_backend()
+    sph2pob_iou_pairwise.launches = 0
+    rc = train.main(argv + ["--launcher", "torch"])
+    torch.cuda.synchronize()
+    launches = sph2pob_iou_pairwise.launches
+    parallel.coordination_barrier("done", timeout_s=timeout_s)
+finally:
+    torch.distributed.destroy_process_group()
+torch.save(last["input"], out)
+print(json.dumps({"rank": rank, "world": world, "backend": backend, "rc": rc,
+                  "launches": launches, "calls": calls, "digests": digests,
+                  "writes": writes, "reduce_ms": reduce_ms,
+                  "peak_memory_bytes": torch.cuda.max_memory_allocated()}),
+      flush=True)
+'''
+
+
+def free_port() -> int:
+    """A TCP port on the loopback free just now (bound, then released)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_environment(rank: int, world: int, port: int):
+    """torchrun's variables for this process, restored on the way out."""
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+           "WORLD_SIZE": str(world), "RANK": str(rank),
+           "LOCAL_RANK": str(rank)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _records(work: str) -> list:
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _update_gap(got: dict, want: dict, start: dict) -> float:
+    """max|dθ_got - dθ_want| / max|dθ_want| over the floating tensors."""
+    num = den = 0.0
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        dw = w.float() - start[k].float()
+        num = max(num, float((got[k].float() - start[k].float() - dw)
+                             .abs().max()))
+        den = max(den, float(dw.abs().max()))
+    return num / den
+
+
+def _ranks_of_one_card(argv: list, tmp: str) -> list:
+    """Phase (b)'s two ranks, as processes of their own on card 0; each
+    logs to a file (a pipe nobody reads can block a rank, and its peer with
+    it); both killed at the deadline or when one fails. Returns each
+    rank's JSON line and its log."""
+    port, procs, logs = free_port(), [], []
+    try:
+        for rank in range(2):
+            env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port), WORLD_SIZE="2",
+                       RANK=str(rank), LOCAL_RANK="0")
+            logs.append(os.path.join(tmp, f"rank{rank}.log"))
+            with open(logs[-1], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", PARALLEL_CHILD, json.dumps(argv),
+                     os.path.join(tmp, f"k1_input_rank{rank}.pt"),
+                     str(PARALLEL_CHILD_S)],
+                    cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + PARALLEL_CHILD_S
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(
+                    p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+    said = []
+    for p, path in zip(procs, logs):
+        with open(path) as f:
+            said.append(f.read())
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError(
+            f"the two ranks ended with {[p.returncode for p in procs]} "
+            f"(deadline {PARALLEL_CHILD_S} s):\n"
+            + "\n".join(s[-3000:] for s in said))
+    return [(json.loads(s.strip().splitlines()[-1]), s) for s in said]
+
+
+def phase_parallel(seed: int, reps: int) -> tuple[int, list]:
+    """Multi-process data parallelism on the rotated config at full width.
+    (a) ``train.main --launcher torch`` at world 1 over NCCL, in this
+    process with torchrun's variables set: 16 images, 4 steps, one
+    evaluation and a checkpoint; its parameters bitwise those of a
+    ``--launcher none`` run of the same seed, the evaluation gathered to 16
+    images with the ungathered run's metrics, K1 once a step at (256,
+    98208) D=5, the checkpoint restored bitwise. (b) two ranks sharing the
+    card over gloo, processes of their own: 8 images, 2 steps at batch 2
+    (fp32, TF32 off), one evaluation; the ranks' parameters bitwise alike after every
+    step, their update within ``PARALLEL_TOLERANCE`` of a one-process run
+    at batch 4 over the same images (``max|dθ_2 - dθ_1| / max|dθ_1|``), K1
+    once a step a rank at (128, 98208), 8 images after de-duplication, only
+    rank 0 writing. The gradient all-reduce is timed in both (synchronised
+    host clock). Returns K1's launches and its checks on the two
+    assignment inputs."""
+    device = resolve_device()
+    torch.backends.cudnn.deterministic = True
+    t_phase = time.perf_counter()
+    seconds, checks = {}, []
+    real_reduce = engine_train.all_reduce_gradients
+    reduce_ms = []
+
+    def timed_reduce(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_reduce(params)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        # (a) world 1 over NCCL against one process without a group
+        options = ("evaluation.interval=1",)
+        works = {k: os.path.join(tmp, k) for k in ("none", "nccl")}
+        none = drive_trainer(CONFIG, PARALLEL_STEPS, TRAIN_BATCH, seed,
+                             work=works["none"], options=options)
+        seconds["a_launcher_none"] = none["seconds"]
+        want = {k: v.detach().clone()
+                for k, v in none["parts"][0].state_dict().items()}
+        none_launches = none["launches"]
+        del none
+        engine_train.all_reduce_gradients = timed_reduce
+        try:
+            with torchrun_environment(0, 1, free_port()):
+                nccl = drive_trainer(CONFIG, PARALLEL_STEPS, TRAIN_BATCH,
+                                     seed, extra=["--launcher", "torch"],
+                                     work=works["nccl"], options=options)
+        finally:
+            engine_train.all_reduce_gradients = real_reduce
+        seconds["a_launcher_torch"] = nccl["seconds"]
+        if torch.distributed.is_initialized():
+            raise AssertionError("train.main left its process group open")
+        on_card = device.type == "cuda"
+        said = (f"process 0/1; backend: {'nccl' if on_card else 'gloo'}; "
+                f"device: {'cuda' if on_card else 'cpu'};")
+        if said not in nccl["said"]:
+            raise AssertionError(f"the trainer said {nccl['said']!r}")
+        model, det_cfg, _, optimizer, _ = nccl["parts"]
+        assert_full_width_training(nccl["cfg"], model, det_cfg, optimizer,
+                                   device)
+        got = model.state_dict()
+        differ = [k for k, v in want.items() if not torch.equal(got[k], v)]
+        if differ:
+            raise AssertionError(f"--launcher torch at world 1 differs from "
+                                 f"--launcher none in {differ[:6]}")
+        want_call = [list(ASSIGN_SHAPE[::2]), list(ASSIGN_SHAPE[1:])]
+        if nccl["calls"] != [want_call] * PARALLEL_STEPS:
+            raise AssertionError(f"K1 was called at {nccl['calls']}")
+        if len(reduce_ms) != PARALLEL_STEPS:
+            raise AssertionError(f"{len(reduce_ms)} gradient all-reduces "
+                                 f"over {PARALLEL_STEPS} steps")
+        gt_flat, anchors = nccl["last_inputs"][ASSIGN_SHAPE[:2]]
+        checks.append({"input": "parallel (a): the last assignment input "
+                                "at world 1 over NCCL",
+                       **check_kernel(KERNELS[0], gt_flat, anchors, reps,
+                                      identical=False)})
+        vals = {k: [r for r in _records(w) if r["prefix"] == "val"]
+                for k, w in works.items()}
+        if [r["n_images"] for r in vals["nccl"]] != [PARALLEL_STEPS
+                                                     * TRAIN_BATCH] or any(
+                vals["nccl"][0][k] != vals["none"][0][k]
+                for k in ("mAP", "AP50", "AP75", "n_images")):
+            raise AssertionError(f"the evaluations: {vals}")
+        fresh = get_family(nccl["cfg"]).build(nccl["cfg"])[0].to(device)
+        step = runner.load_checkpoint(os.path.join(works["nccl"], "ckpts"),
+                                      fresh)
+        restored = fresh.state_dict()
+        if step != PARALLEL_STEPS or not all(
+                torch.equal(restored[k], v) for k, v in got.items()):
+            raise AssertionError("the checkpoint does not restore the "
+                                 "trained parameters")
+        nccl_launches = nccl["launches"]
+        a = {"backend": "nccl" if on_card else "gloo",
+             "params_bitwise_launcher_none": True,
+             "val": vals["nccl"][0], "checkpoint_restored_bitwise": True,
+             "allreduce_ms": reduce_ms,
+             "kernel_launches": {"launcher_none": none_launches,
+                                 "launcher_torch": nccl_launches}}
+        del nccl, model, optimizer, fresh, got, want, restored
+        torch.cuda.empty_cache()
+
+        # (b) two gloo ranks on the card against one process at batch 4
+        rank_images = PARALLEL_RANK_STEPS * PARALLEL_RANK_BATCH * 2
+        opts = [f"data.n_synthetic={rank_images}", "log_config.interval=1",
+                *PARALLEL_OPTIONS]
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            one = drive_trainer(CONFIG, PARALLEL_RANK_STEPS,
+                                rank_images // 2, seed,
+                                work=os.path.join(tmp, "one"),
+                                options=PARALLEL_OPTIONS)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        seconds["b_one_process"] = one["seconds"]
+        cfg = one["cfg"]
+        theta1 = {k: v.detach().cpu() for k, v in
+                  one["parts"][0].state_dict().items()}
+        one_launches = one["launches"]
+        del one
+        start = get_family(cfg).build(cfg)[0]
+        start.init_weights(torch.Generator().manual_seed(seed))
+        theta0 = start.state_dict()
+        torch.cuda.empty_cache()
+        work = os.path.join(tmp, "ranks")
+        argv = [CONFIG, "--synthetic", "--seed", str(seed), "--max-epochs",
+                "1", "--work-dir", work, "--device", device.type,
+                "--cfg-options",
+                f"data.samples_per_gpu={PARALLEL_RANK_BATCH}", *opts]
+        t0 = time.perf_counter()
+        ranks = _ranks_of_one_card(argv, tmp)
+        seconds["b_two_ranks"] = time.perf_counter() - t0
+        (r0, said0), (r1, said1) = ranks
+        if r0["digests"] != r1["digests"] \
+                or len(r0["digests"]) != PARALLEL_RANK_STEPS:
+            raise AssertionError(f"the ranks' parameters after each step: "
+                                 f"{r0['digests']} / {r1['digests']}")
+        for r, said in ranks:
+            if r["backend"] != "gloo" or r["rc"] != 0 \
+                    or f"process {r['rank']}/2; backend: gloo; device: " \
+                    f"{'cuda' if on_card else 'cpu'};" not in said:
+                raise AssertionError(f"rank {r['rank']} said {said[-2000:]}")
+            want_call = [[PARALLEL_SHAPE[0], PARALLEL_SHAPE[2]],
+                         [PARALLEL_SHAPE[1], PARALLEL_SHAPE[2]]]
+            if r["calls"]["assign"] != [want_call] * PARALLEL_RANK_STEPS \
+                    or r["launches"] != PARALLEL_RANK_STEPS + len(
+                        r["calls"]["nms"]):
+                raise AssertionError(f"rank {r['rank']}: {r['launches']} "
+                                     f"K1 launches, calls {r['calls']}")
+        if r1["writes"] or "latest.txt" not in r0["writes"]:
+            raise AssertionError(f"writes: {r0['writes']} / {r1['writes']}")
+        records = _records(work)
+        if [r["step"] for r in records if r["prefix"] == "train"] != list(
+                range(1, PARALLEL_RANK_STEPS + 1)) or [
+                r["n_images"] for r in records if r["prefix"] == "val"] \
+                != [rank_images]:
+            raise AssertionError(f"the ranks logged {records}")
+        theta2 = runner.read_checkpoint(os.path.join(
+            work, "ckpts", "epoch_1"))["model"]
+        gap = _update_gap(theta2, theta1, theta0)
+        if not gap <= PARALLEL_TOLERANCE:
+            raise AssertionError(
+                f"two ranks' update is {gap} from one process's (tolerance "
+                f"{PARALLEL_TOLERANCE})")
+        b1, b2 = torch.load(os.path.join(tmp, "k1_input_rank0.pt"))
+        checks.append({"input": "parallel (b): rank 0's last assignment "
+                                "input of two gloo ranks on one card",
+                       **check_kernel(KERNELS[0], b1.to(device),
+                                      b2.to(device), reps, identical=False)})
+        for c in checks:
+            if not c["bitwise_equal"]:
+                raise AssertionError(f"K1 differs from its plain version "
+                                     f"on {c['input']}: {c['max_abs_err']}")
+        b = {"backend": "gloo", "ranks_bitwise_after_each_step": True,
+             "update_gap": gap, "tolerance": PARALLEL_TOLERANCE,
+             "val": [r for r in records if r["prefix"] == "val"][0],
+             "rank0_writes": r0["writes"],
+             "allreduce_ms": {f"rank{r['rank']}": r["reduce_ms"]
+                              for r, _ in ranks},
+             "peak_memory_bytes": {f"rank{r['rank']}": r["peak_memory_bytes"]
+                                   for r, _ in ranks},
+             "kernel_launches": {"one_process": one_launches,
+                                 **{f"rank{r['rank']}": r["launches"]
+                                    for r, _ in ranks}},
+             "nms_calls_a_rank": len(r0["calls"]["nms"])}
+    launches = (none_launches + nccl_launches + one_launches
+                + r0["launches"] + r1["launches"])
+    seconds["phase"] = time.perf_counter() - t_phase
+    emit({"phase": "parallel", "config": os.path.relpath(CONFIG, ROOT),
+          "seconds": seconds, "world1_nccl": a, "two_ranks_gloo": b,
+          "kernel_launches": launches, "kernel_on_assignment_inputs": checks})
+    return launches, checks
+
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3794,11 +4185,14 @@ def main(argv=None) -> int:
     launches["sph2pob_iou_pairwise"] += trained
     trained, on_pretrained_assign = phase_pretrained(args.seed, args.reps)
     launches["sph2pob_iou_pairwise"] += trained
+    trained, on_parallel_inputs = phase_parallel(args.seed, args.reps)
+    launches["sph2pob_iou_pairwise"] += trained
     # K1 on the inputs its paths gave it, beside its seeded shapes
     shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input,
                                        on_iou_input, on_ssd_input,
                                        *on_frcnn_input, on_val_nms_input,
-                                       on_input_assign, on_pretrained_assign]
+                                       on_input_assign, on_pretrained_assign,
+                                       *on_parallel_inputs]
     idle = [k.name for k in KERNELS if launches[k.name] < 1]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

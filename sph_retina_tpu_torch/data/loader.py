@@ -35,22 +35,19 @@ class DataLoader:
     num_workers: int = 4
     drop_last: bool = True
     prefetch: int = 2
-    # Per-process dataset shards belong to multi-process data parallelism,
-    # which is not part of this package yet.
+    # Multi-process data parallelism: each process reads shard ``shard_id``
+    # of ``num_shards`` (DistributedSampler semantics: one permutation seeded
+    # alike in every process, wrap-padded so that every shard has the same
+    # length, then stride-sliced).
     num_shards: int = 1
     shard_id: int = 0
-    # Augmentation-stream seed; defaults to ``seed``. Only the per-sample
-    # augmentation rngs use it, never the shuffle.
+    # Augmentation-stream seed (``--diff-seed``: seed + rank); defaults to
+    # ``seed``. Only the per-sample augmentation rngs use it, never the
+    # shuffle, so that the shards partition the epoch exactly.
     aug_seed: int | None = None
 
-    def __post_init__(self):
-        if self.num_shards != 1 or self.shard_id != 0:
-            raise NotImplementedError(
-                f"num_shards={self.num_shards}, shard_id={self.shard_id}: "
-                "dataset shards are not available in this package yet")
-
     def __len__(self):
-        n = len(self.dataset)
+        n = -(-len(self.dataset) // self.num_shards)  # padded shard length
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)
@@ -59,6 +56,13 @@ class DataLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(idx)
+        if self.num_shards > 1:
+            total = len(self) * self.batch_size if self.drop_last else (
+                -(-len(idx) // self.num_shards))
+            total *= self.num_shards
+            if total > len(idx):  # wrap-pad
+                idx = np.concatenate([idx, idx[: total - len(idx)]])
+            idx = idx[self.shard_id:total:self.num_shards]
         if self.drop_last:
             idx = idx[: len(self) * self.batch_size]
         return idx

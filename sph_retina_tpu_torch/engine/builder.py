@@ -97,7 +97,8 @@ def build_datasets(cfg: dict, split: str = "train", num_shards: int = 1,
     ``"yuv420"`` (which forces ``normalize_on_device``) or ``"auto"``,
     resolved by the measured policy (``data/policy.py``) for
     ``workers_per_gpu`` workers; ``data.native_decoder=False`` decodes with
-    PIL. ``num_shards > 1`` raises by name (the loader says so)."""
+    PIL. ``num_shards`` / ``shard_id``: this process's shard of the split
+    (``DataLoader``'s wrap-padded stride slices of one permutation)."""
     d = cfg["data"][split]
     box_version = cfg["model"].get("box_version", 4)
     ds = SphCocoDataset(

@@ -6,6 +6,7 @@ import numpy as np
 import torch
 
 from ..data.loader import PinnedStaging, prefetch_to_device, to_device
+from ..parallel import all_gather_eval_arrays
 from .eval import eval_spherical_map
 from .zoo import RetinaNetFamily
 
@@ -38,11 +39,14 @@ def evaluate_dataset(
     back in the mode it was found in. ``device`` is where the images are
     sent (``prefetch_to_device``: on a copy stream of its own on the card)
     and the matcher's IoU matrices computed (``None``: the model's device).
+
+    ``distributed=True``: the loader is this process's shard
+    (``DataLoader(num_shards=world, shard_id=rank)``); the padded result
+    arrays of every process are gathered to every process and de-duplicated
+    by image id, keeping the first (the shards' wrap-padding repeats a few
+    images), before scoring, so that every process returns the metrics of
+    the whole dataset.
     """
-    if distributed:
-        raise NotImplementedError(
-            "distributed evaluation (dataset shards, gathered results) is "
-            "not available in this package yet")
     if predict is None:
         predict = make_predict_step(model, cfg)
     if device is None:
@@ -82,6 +86,13 @@ def evaluate_dataset(
     finally:
         model.train(was_training)
     arrays = {k: np.concatenate(v, axis=0) for k, v in acc.items()}
+
+    if distributed:
+        arrays = all_gather_eval_arrays(arrays)
+        if np.all(arrays["img_id"] >= 0):
+            _, first = np.unique(arrays["img_id"], return_index=True)
+            keep = np.sort(first)
+            arrays = {k: v[keep] for k, v in arrays.items()}
 
     det_results, annotations = [], []
     for i in range(arrays["boxes"].shape[0]):

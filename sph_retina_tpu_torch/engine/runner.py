@@ -6,7 +6,8 @@ tracking (``save_best='AP50'``), TextLogger-style metric lines at
 ``log_config.interval``, an epoch record after each epoch, the memory report
 at a MemoryProfiler interval. A checkpoint is one ``torch.save`` file: the
 model's ``state_dict``, the optimiser's state, the step count and the state
-of the train step's generator.
+of the train step's generator (of every rank's, when several processes
+train: ``RankZeroCheckpointer``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,12 @@ import numpy as np
 import torch
 
 from ..data.loader import prefetch_to_device
+from ..parallel import (
+    all_gather_objects,
+    coordination_barrier,
+    get_rank,
+    global_metrics,
+)
 
 
 @dataclass
@@ -138,10 +145,13 @@ class Checkpointer:
         self.best = -np.inf
 
     def save(self, model, optimizer, epoch: int, metric: float | None = None,
-             generator: torch.Generator | None = None) -> str:
+             generator: torch.Generator | None = None,
+             generators: list | None = None) -> str:
         """Write ``epoch_{epoch}``; only once it is complete on disk is
         ``latest.txt`` advanced, so that a crash in between leaves the
-        pointer at the previous checkpoint. Returns the path."""
+        pointer at the previous checkpoint. Returns the path. ``generators``:
+        every rank's generator state, in rank order, where several
+        processes train (``generator`` is then rank 0's)."""
         ckpt = {
             "format": CHECKPOINT_FORMAT,
             "step": optimizer.count,
@@ -150,6 +160,8 @@ class Checkpointer:
             "optimizer": optimizer.state_dict(),
             "generator": None if generator is None else generator.get_state(),
         }
+        if generators is not None:
+            ckpt["generators"] = generators
         path = os.path.join(self.dir, f"epoch_{epoch}")
         _write_atomically(path, lambda tmp: torch.save(ckpt, tmp))
 
@@ -185,16 +197,42 @@ class Checkpointer:
     def restore(self, model, optimizer, path: str | None = None,
                 generator: torch.Generator | None = None) -> int:
         """Load ``path`` (default: :meth:`latest_path`) into the model, the
-        optimiser and, where given, the generator; returns the checkpoint's
-        step count (the optimiser's count, unchanged, when there is no
-        checkpoint)."""
+        optimiser and, where given, the generator (this rank's state);
+        returns the checkpoint's step count (the optimiser's count,
+        unchanged, when there is no checkpoint)."""
         path = path or self.latest_path()
         if path is None:
             return optimizer.count
-        return load_checkpoint(path, model, optimizer, generator)
+        return load_checkpoint(path, model, optimizer, generator,
+                               rank=get_rank())
 
     def wait(self) -> None:
         """Saves are synchronous: nothing is pending when ``save`` returns."""
+
+
+class RankZeroCheckpointer(Checkpointer):
+    """Checkpoints of several processes that train alike: every rank calls
+    ``save`` and ``restore`` at the same points. ``save`` gathers every
+    rank's generator state to rank 0, which alone writes; a barrier follows,
+    so no rank goes on before the file is whole. ``restore`` lines the ranks
+    up, then every rank reads the same file (a file system all ranks see,
+    as the work directory is) and takes its own generator state."""
+
+    def save(self, model, optimizer, epoch: int, metric: float | None = None,
+             generator: torch.Generator | None = None) -> str:
+        states = all_gather_objects(
+            None if generator is None else generator.get_state())
+        path = os.path.join(self.dir, f"epoch_{epoch}")
+        if get_rank() == 0:
+            super().save(model, optimizer, epoch, metric, generator,
+                         generators=None if generator is None else states)
+        coordination_barrier("ckpt_save")
+        return path
+
+    def restore(self, model, optimizer, path: str | None = None,
+                generator: torch.Generator | None = None) -> int:
+        coordination_barrier("ckpt_restore")
+        return super().restore(model, optimizer, path, generator)
 
 
 def resolve_checkpoint(path: str) -> str:
@@ -221,10 +259,13 @@ def read_checkpoint(path: str) -> dict:
 
 
 def load_checkpoint(path: str, model, optimizer=None,
-                    generator: torch.Generator | None = None) -> int:
+                    generator: torch.Generator | None = None,
+                    rank: int = 0) -> int:
     """Load a checkpoint file (or the newest of a directory) into the live
     tensors of the model, the optimiser and the generator; returns its
-    step count."""
+    step count. ``rank``: whose generator state to take from a checkpoint
+    of several processes; a rank the checkpoint has no state for (it was
+    written by fewer processes) keeps its generator as it is."""
     ckpt = read_checkpoint(resolve_checkpoint(path))
     model.load_state_dict(ckpt["model"], strict=True)
     if optimizer is not None:
@@ -232,7 +273,12 @@ def load_checkpoint(path: str, model, optimizer=None,
     if generator is not None:
         if ckpt["generator"] is None:
             raise ValueError(f"{path!r} holds no generator state")
-        generator.set_state(ckpt["generator"])
+        states = ckpt.get("generators") or [ckpt["generator"]]
+        if rank < len(states):
+            generator.set_state(states[rank])
+        else:
+            print(f"{path!r} holds generator states of {len(states)} "
+                  f"processes; rank {rank} keeps its own")
     return int(ckpt["step"])
 
 
@@ -277,7 +323,9 @@ def run_training(
             metrics = train_step(batch)
             step_count += 1
             if step_count % logger.interval == 0:
-                # NaN-loss detection (mmdet's CheckLossHook)
+                # the global batch's losses (summed over the ranks, on
+                # every rank); NaN-loss detection (mmdet's CheckLossHook)
+                metrics = global_metrics(metrics)
                 loss_val = float(metrics.get("loss", 0.0))
                 if loss_val != loss_val:
                     logger.log(step_count, {"nan_loss": 1.0}, prefix="error")

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..data.pipeline import maybe_normalize_images
+from ..parallel import all_reduce_gradients
 
 
 def step_lr_schedule(
@@ -221,10 +222,20 @@ def total_loss(losses: dict):
 
 def run_step(optimizer: SGDOptimizer, compute: Callable[[], tuple]) -> dict:
     """Forward, backward and update: ``compute() -> (total, losses)``.
-    Returns the metrics as detached 0-dim tensors."""
+    Returns the metrics as detached 0-dim tensors (this rank's share: the
+    losses are normalised by global counts).
+
+    In a process group the trainable gradients are summed over the ranks
+    between the backward pass and the update, so that the optimiser's clip
+    sees the global batch's gradient and every rank takes the same step (the
+    JAX package's global-batch step). The model is not wrapped in
+    ``DistributedDataParallel``: Faster R-CNN's RoI head and OHEM's forward
+    run outside ``model(...)``, frozen parameters have no gradient, and the
+    module's names stay those a checkpoint of one process has."""
     optimizer.zero_grad()
     total, losses = compute()
     total.backward()
+    all_reduce_gradients(optimizer.params)
     optimizer.step()
     return {"loss": total.detach(),
             **{k: v.detach() for k, v in losses.items()}}

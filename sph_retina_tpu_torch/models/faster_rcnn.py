@@ -36,6 +36,7 @@ from ..boxes.coders import SphBBoxCoder
 from ..boxes.nms import NMSResult, sph_batched_nms, sph_batched_soft_nms
 from ..losses.focal_loss import _bce_with_logits
 from ..ops.sph2pob_iou import sph2pob_iou_pairwise
+from ..parallel import global_count
 from .fpn import FPN
 from .resnet import Conv2d, ResNet, seeded_init_
 from .single_stage import _batch_pairwise_iou
@@ -351,8 +352,10 @@ def rpn_loss(cfg: FasterRCNNConfig, rpn_cls, rpn_reg, gt_boxes, gt_mask,
     loss_cls = torch.where(pos | neg, bce, 0.0).sum()
     l1 = (reg - targets).abs().sum(-1)
     loss_reg = torch.where(pos, l1, 0.0).sum()
-    return {"loss_rpn_cls": loss_cls / (pos | neg).sum().clamp_min(1),
-            "loss_rpn_bbox": loss_reg / pos.sum().clamp_min(1)}
+    # normalisers over the global batch: summed over the ranks
+    return {"loss_rpn_cls":
+            loss_cls / global_count((pos | neg).sum()).clamp_min(1),
+            "loss_rpn_bbox": loss_reg / global_count(pos.sum()).clamp_min(1)}
 
 
 class RoITargets(NamedTuple):
@@ -432,9 +435,10 @@ def rcnn_loss(cfg: FasterRCNNConfig, cls_logits, reg_pred,
     pos = targets.pos_mask.reshape(-1)
     logp = torch.log_softmax(cls_logits.float(), dim=-1)
     ce = -logp.gather(1, labels[:, None])[:, 0]
-    loss_cls = (ce * w).sum() / w.sum().clamp_min(1.0)
+    # normalisers over the global batch: summed over the ranks
+    loss_cls = (ce * w).sum() / global_count(w.sum()).clamp_min(1.0)
     d = reg_pred.shape[-1]
-    num_pos = pos.sum().clamp_min(1).to(torch.float32)
+    num_pos = global_count(pos.sum()).clamp_min(1).to(torch.float32)
     reg_t = targets.reg_targets.reshape(-1, d)
     if cfg.reg_decoded_bbox and cfg.loss_bbox is not None:
         coder = cfg.rcnn_coder()

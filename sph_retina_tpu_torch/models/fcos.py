@@ -26,6 +26,7 @@ from torch import nn
 from ..boxes.coders import DistancePointSphBBoxCoder
 from ..boxes.nms import NMSResult, sph_batched_nms
 from ..losses.focal_loss import _bce_with_logits, sigmoid_focal_loss
+from ..parallel import global_count
 from .fpn import FPN
 from .resnet import Conv2d, ResNet, seeded_init_
 from .single_stage import _select_level
@@ -257,7 +258,8 @@ def fcos_loss(cfg: FCOSConfig, cls_scores, bbox_preds, centernesses,
     level_points = level_points or cfg.level_points(reg.device)
     t = fcos_targets(cfg, gt_boxes, gt_labels, gt_mask, level_points)
     pos = (t.labels >= 0) & (t.labels < cfg.num_classes)
-    num_pos = pos.sum().clamp(min=1).to(torch.float32)
+    # normalisers over the global batch: summed over the ranks
+    num_pos = global_count(pos.sum()).clamp(min=1).to(torch.float32)
 
     loss_cls = sigmoid_focal_loss(
         cls.reshape(-1, cfg.num_classes), t.labels.reshape(-1),
@@ -272,7 +274,7 @@ def fcos_loss(cfg: FCOSConfig, cls_scores, bbox_preds, centernesses,
         tgt_boxes = torch.cat([tgt_boxes, t.bbox_targets[..., 4:5]], -1)
 
     pos_ctr = torch.where(pos, t.centerness, 0.0)
-    ctr_denorm = pos_ctr.sum().clamp_min(1e-6)
+    ctr_denorm = global_count(pos_ctr.sum()).clamp_min(1e-6)
     d = pred_boxes.shape[-1]
     # weight as (N, 1): broadcasts over coordinates for the L1 family;
     # reduce_box_weight collapses it to (N,) for the per-box losses

@@ -35,6 +35,7 @@ from ..boxes.nms import NMSResult, sph_batched_nms, sph_batched_soft_nms
 from ..iou.api import canonical_backend, sph_overlaps
 from ..losses import sigmoid_focal_loss, sph_l1_loss
 from ..ops.sph2pob_iou import sph2pob_iou_pairwise
+from ..parallel import global_count
 from .fpn import FPN
 from .heads.retina_head import SphRetinaHead
 from .resnet import ResNet, seeded_init_
@@ -213,7 +214,8 @@ def retina_loss(
     cls = torch.cat(list(cls_scores), dim=1).float()   # (B, N, C)
     reg = torch.cat(list(bbox_preds), dim=1).float()   # (B, N, D)
     t = anchor_targets(cfg, anchors, gt_boxes, gt_labels, gt_mask)
-    num_total = t.num_pos.clamp(min=1).to(torch.float32)
+    # positives of the global batch: summed over the ranks
+    num_total = global_count(t.num_pos).clamp(min=1).to(torch.float32)
 
     loss_cls = sigmoid_focal_loss(
         cls.reshape(-1, cfg.num_classes),

@@ -29,6 +29,7 @@ from ..boxes.anchors import SphSSDAnchorGenerator
 from ..boxes.assigner import MaxIoUAssigner
 from ..boxes.coders import SphBBoxCoder
 from ..boxes.nms import NMSResult, sph_batched_nms
+from ..parallel import global_count
 from .resnet import Conv2d, seeded_init_
 from .single_stage import _batch_pairwise_iou, _select_level
 from .vgg import SSDNeck, SSDVGG
@@ -214,7 +215,8 @@ def ssd_loss(cfg: SSDConfig, cls_scores, bbox_preds, anchors, gt_boxes,
                           diff - 0.5 * cfg.smoothl1_beta)
         loss_bbox = torch.where(pos[..., None], sl1, 0.0).sum()
 
-    denom = num_pos.sum().clamp(min=1).to(torch.float32)
+    # positives of the global batch: summed over the ranks
+    denom = global_count(num_pos.sum()).clamp(min=1).to(torch.float32)
     out = {"loss_cls": loss_cls / denom, "loss_bbox": loss_bbox / denom}
     if cfg.reg_decoded_bbox and cfg.loss_pos_topk:
         out["metric_pos_dropped"] = dropped

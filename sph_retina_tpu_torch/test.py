@@ -13,8 +13,10 @@ input of ``confusion_matrix``, ``coco_error_analysis``, ``occluded_recall``
 and ``analyze_results``. Runs on the CUDA device unless ``--device cpu`` is
 given.
 
-Not available in this package yet, and raising ``NotImplementedError`` by
-name: ``--launcher`` (multi-process evaluation).
+``--launcher torch`` (under ``torchrun``, as for ``train.py``): each process
+evaluates its shard of the set, the results are gathered to every process
+and de-duplicated, and only rank 0 prints the metrics and writes ``--out``
+and ``--save-raw``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from .engine.evaluator import evaluate_dataset
 from .engine.runner import load_checkpoint
 from .engine.train import get_ema_params, with_ema_params
 from .engine.zoo import get_family
+from .parallel import process_group
 from .utils.config import apply_overrides, load_config
 from .utils.device import resolve_device
 
@@ -51,14 +54,19 @@ def parse_args(argv=None):
                    help="evaluate with the EMA shadow weights")
     p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="default: the CUDA device; cpu for smoke tests")
-    p.add_argument("--launcher", default="none", choices=["none", "torch"])
+    p.add_argument("--launcher", default="none", choices=["none", "torch"],
+                   help="torch: evaluate a shard a process of the group "
+                        "torchrun started, and gather the results")
     p.add_argument("--cfg-options", nargs="*", default=None)
     return p.parse_args(argv)
 
 
-def eval_loader(cfg: dict, synthetic: bool):
+def eval_loader(cfg: dict, synthetic: bool, num_shards: int = 1,
+                shard_id: int = 0):
+    """Shard ``shard_id`` of ``num_shards`` of the config's ``data.test``, or
+    of 16 synthetic images."""
     if not synthetic:
-        return build_datasets(cfg, "test")[1]
+        return build_datasets(cfg, "test", num_shards, shard_id)[1]
     img_size = tuple(cfg.get("img_size", (512, 1024)))
     box_version = cfg["model"].get("box_version", 4)
     ds = make_synthetic_dataset(
@@ -66,7 +74,8 @@ def eval_loader(cfg: dict, synthetic: bool):
         img_size=img_size, box_version=box_version)
     pipe = SphPipeline(img_size=img_size, training=False,
                        box_version=box_version)
-    return DataLoader(ds, pipe, batch_size=4, shuffle=False, drop_last=False)
+    return DataLoader(ds, pipe, batch_size=4, shuffle=False, drop_last=False,
+                      num_shards=num_shards, shard_id=shard_id)
 
 
 def load_for_eval(cfg: dict, checkpoint: str, device, ema: bool = False):
@@ -86,28 +95,29 @@ def load_for_eval(cfg: dict, checkpoint: str, device, ema: bool = False):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.launcher != "none":
-        raise NotImplementedError(
-            f"--launcher {args.launcher} is not available in this package yet")
     device = resolve_device(args.device)
-    cfg = apply_overrides(load_config(args.config), args.cfg_options)
-    loader = eval_loader(cfg, args.synthetic)
-    model, det_cfg, step = load_for_eval(cfg, args.checkpoint, device,
-                                         args.ema)
-    print(f"loaded checkpoint at step {step}")
-    results = evaluate_dataset(
-        model, det_cfg, loader, backend=args.iou_backend,
-        predict=get_family(cfg).predict_fn(model, det_cfg),
-        return_raw=bool(args.save_raw))
+    with process_group(args.launcher, device) as (rank, world):
+        cfg = apply_overrides(load_config(args.config), args.cfg_options)
+        loader = eval_loader(cfg, args.synthetic, world, rank)
+        model, det_cfg, step = load_for_eval(cfg, args.checkpoint, device,
+                                             args.ema)
+        if rank == 0:
+            print(f"loaded checkpoint at step {step}")
+        results = evaluate_dataset(
+            model, det_cfg, loader, backend=args.iou_backend,
+            predict=get_family(cfg).predict_fn(model, det_cfg),
+            distributed=world > 1, return_raw=bool(args.save_raw))
     if args.save_raw:
         results, raw = results
-        save_raw_results(args.save_raw, raw)
-        print(f"raw results -> {args.save_raw}")
+        if rank == 0:
+            save_raw_results(args.save_raw, raw)
+            print(f"raw results -> {args.save_raw}")
     summary = {k: v for k, v in results.items() if isinstance(v, float)}
-    print(json.dumps(summary, indent=2))
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(summary, f)
+    if rank == 0:
+        print(json.dumps(summary, indent=2))
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(summary, f)
     return 0
 
 

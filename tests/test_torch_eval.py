@@ -38,6 +38,7 @@ from sph_retina_tpu.engine import builder as jbuilder
 from sph_retina_tpu.engine import eval as jeval
 from sph_retina_tpu.engine import evaluator as jevaluator
 from sph_retina_tpu.engine.zoo import get_family as jax_get_family
+from sph_retina_tpu_torch.boxes.nms import NMSResult
 from sph_retina_tpu_torch.data import SphCocoDataset
 from sph_retina_tpu_torch.engine import builder as tbuilder
 from sph_retina_tpu_torch.engine import eval as teval
@@ -49,6 +50,7 @@ from sph_retina_tpu_torch.utils.config import apply_overrides, load_config
 from test_torch_model import randomize
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from utils.process_group import gloo_world_of_one  # noqa: E402
 from utils.synthetic_coco import write_synthetic_coco  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -153,7 +155,8 @@ def test_build_datasets_gives_the_jax_packages_batches(coco, split,
 def test_build_datasets_refuses_what_is_not_ported(coco, monkeypatch):
     """``auto`` and ``yuv420`` build (``auto`` resolved by the policy, here
     with its probes replaced: a link that binds gives ``yuv420``, no card
-    gives ``rgb``); shards still raise."""
+    gives ``rgb``); two shards of the val split cover it, wrap-padded to
+    one length (shards were refused before this package read them)."""
     from sph_retina_tpu_torch.data import policy
 
     cfg = _cfg(*coco)
@@ -177,8 +180,12 @@ def test_build_datasets_refuses_what_is_not_ported(coco, monkeypatch):
         _, loader = tbuilder.build_datasets(cfg, "val")
     assert loader.pipeline.transfer_colorspace == "rgb"
     cfg["data"]["transfer_colorspace"] = "rgb"
-    with pytest.raises(NotImplementedError, match="shards"):
-        tbuilder.build_datasets(cfg, "val", num_shards=2, shard_id=1)
+    ids = [[int(i) for b in tbuilder.build_datasets(
+        cfg, "val", num_shards=2, shard_id=r)[1].epoch(0)
+        for i in b["img_id"]] for r in range(2)]
+    n = len(tbuilder.build_datasets(cfg, "val")[0])
+    assert len(ids[0]) == len(ids[1]) == -(-n // 2)
+    assert len(set(ids[0] + ids[1])) == n
 
 
 def _boxes(rng, n, d):
@@ -409,6 +416,37 @@ def test_evaluate_dataset_equals_the_jax_packages(coco, family, monkeypatch,
     assert got["mAP"] > 0
 
 
-def test_evaluate_dataset_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="distributed"):
-        tevaluator.evaluate_dataset(None, None, None, distributed=True)
+def test_evaluate_dataset_refuses_what_is_not_ported(coco, tmp_path):
+    """Nothing is refused any more: ``distributed=True`` gathers the
+    shards' results, and without a process group or in a group of one
+    process the gather is the identity, so the metrics are the ungathered
+    ones over the whole split."""
+    cfg = _cfg(*coco)
+    ds, loader = tbuilder.build_datasets(cfg, "val")
+    det_cfg = get_family(cfg).build(cfg)[1]
+    k = 3
+    g = torch.arange(k, dtype=torch.float32)
+    boxes = torch.stack([60 + 90 * g, 90 + 0 * g, 40 + 0 * g, 30 + 0 * g,
+                         0 * g], -1)
+
+    def predict(images):
+        b = images.shape[0]
+        return NMSResult(boxes.expand(b, k, 5),
+                         torch.linspace(0.9, 0.5, k).expand(b, k),
+                         torch.zeros((b, k), dtype=torch.int32),
+                         torch.arange(k).expand(b, k),
+                         torch.ones((b, k), dtype=torch.bool))
+
+    def run(distributed):
+        return tevaluator.evaluate_dataset(
+            torch.nn.Linear(1, 1), det_cfg, loader, predict=predict,
+            iou_thrs=(0.1, 0.5), distributed=distributed)
+
+    want = run(False)
+    with gloo_world_of_one(tmp_path):
+        in_group = run(True)
+    for got in (run(True), in_group):
+        assert got.keys() == want.keys()
+        assert got["n_images"] == want["n_images"] == len(ds)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)

@@ -30,6 +30,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.distributed as dist
 
 from sph_retina_tpu.data import DataLoader as JaxDataLoader
 from sph_retina_tpu.data import SphPipeline as JaxPipeline
@@ -71,6 +72,7 @@ from sph_retina_tpu_torch.models.single_stage import SphRetinaNet
 
 from test_torch_assign_loss import port_iou_callback
 from test_torch_model import randomize
+from utils.process_group import gloo_world_of_one
 
 CLASSES, VERSION, H, W, MAX_GT, BATCH = 7, 5, 64, 128, 8, 2
 CONFIG = "configs/sph_rotated_retinanet_r18_24e_spherebench.py"
@@ -216,11 +218,15 @@ def test_both_loaders_yield_identical_batches(slice_):
 
 
 def test_loader_rejects_shards_and_pipeline_rejects_yuv():
-    """Shards raise; ``yuv420`` without ``normalize_on_device`` raises the
+    """Two shards partition the epoch (their refusal is gone: the loader
+    reads shards now); ``yuv420`` without ``normalize_on_device`` raises the
     JAX package's ``ValueError`` (the conversion runs in the step)."""
     ds = make_synthetic_dataset(n_images=4)
-    with pytest.raises(NotImplementedError, match="num_shards"):
-        DataLoader(ds, SphPipeline(), num_shards=2)
+    shards = [[int(i) for b in DataLoader(
+        ds, SphPipeline(img_size=(H, W)), batch_size=1, num_shards=2,
+        shard_id=r).epoch(0) for i in b["img_id"]] for r in range(2)]
+    assert len(shards[0]) == len(shards[1]) == 2
+    assert sorted(shards[0] + shards[1]) == [0, 1, 2, 3]
     with pytest.raises(ValueError, match="normalize_on_device"):
         SphPipeline(transfer_colorspace="yuv420")
     u8 = SphPipeline(img_size=(H, W), normalize_on_device=True)(
@@ -434,30 +440,45 @@ def test_trainer_cli_writes_finite_metrics(tmp_path, monkeypatch, capsys):
     assert records[-1]["prefix"] == "epoch" and records[-1]["epoch"] == 0
 
 
-@pytest.mark.parametrize("cli, argv, match", [
-    # resuming works now; a resumed run across processes still refuses
+TINY_RUN = ["--max-epochs", "1", "--cfg-options", "img_size=(64,128)",
+            "bf16=False", "data.samples_per_gpu=2", "data.n_synthetic=2",
+            "log_config.interval=1"]
+
+
+@pytest.mark.parametrize("cli, argv, error, match", [
+    # --launcher torch joins the group it finds (here one gloo process) and
+    # goes on to the command's next error, or runs
     (train_cli, [CONFIG, "--synthetic", "--device", "cpu", "--resume-from",
-                 "x", "--launcher", "torch"], "--launcher"),
-    # loading a backbone works now; across processes it still refuses
+                 "x", "--launcher", "torch"], FileNotFoundError,
+     "no checkpoint at 'x'"),
     (train_cli, [CONFIG, "--synthetic", "--device", "cpu", "--load-backbone",
-                 "x", "--launcher", "torch"], "--launcher"),
+                 "x", "--launcher", "torch"], FileNotFoundError, "'x'"),
     (train_cli, [CONFIG, "--synthetic", "--device", "cpu", "--launcher",
-                 "torch"], "--launcher"),
-    # training on the config's annotation files from a loaded backbone
-    # works now; across processes it still refuses, before reading them
+                 "torch", *TINY_RUN], None, None),
+    # the config's annotation files are read, then the backbone file is
+    # missing
     (train_cli, [CONFIG, "--device", "cpu", "--load-backbone", "x",
-                 "--launcher", "torch"], "--launcher"),
-    # the evaluation CLI's raw results for the analysis tools work now;
-    # evaluating across processes still refuses
+                 "--launcher", "torch"], FileNotFoundError, "'x'"),
     (test_cli, [CONFIG, "x", "--device", "cpu", "--save-raw", "raw.npz",
-                "--launcher", "torch"], "--launcher"),
+                "--launcher", "torch"], FileNotFoundError,
+     "no checkpoint at 'x'"),
 ], ids=["resume", "load_backbone", "launcher", "annotation_file",
         "iou_loss_of_the_config"])
-def test_trainer_cli_refuses_by_name(cli, argv, match, tmp_path):
+def test_trainer_cli_refuses_by_name(cli, argv, error, match,
+                                     emptied_tmp_path, monkeypatch, capsys):
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     if cli is train_cli:
-        argv = argv + ["--work-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(argv)
+        argv = argv + ["--work-dir", str(emptied_tmp_path / "work")]
+    with gloo_world_of_one(emptied_tmp_path):
+        if error is None:
+            assert cli.main(argv) == 0
+            out = capsys.readouterr().out
+            assert "process 0/1; backend: gloo; device: cpu" in out
+            assert "training done" in out
+        else:
+            with pytest.raises(error, match=match):
+                cli.main(argv)
+        assert dist.is_initialized()  # the caller's group stays the caller's
 
 
 def test_trainer_cli_raises_without_a_card(tmp_path):

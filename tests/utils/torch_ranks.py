@@ -1,0 +1,127 @@
+"""One rank of a multi-process job of the port, started by
+``tests/test_torch_parallel_ranks.py`` as ``python torch_ranks.py JOB
+SPEC.json`` with torchrun's variables set. Imports the port and never JAX
+(nor any test module). Writes what the test reads into the spec's
+``out_dir``; prints one JSON line of its own at the end.
+
+Jobs:
+
+- ``steps``: for each model of the spec, one train step on this rank's half
+  of a fixed batch; saves the gradients as summed over the ranks (before
+  the optimiser's clip) and the parameters after the step.
+- ``train``: ``train.main`` with ``--launcher torch``, then ``test.main``
+  where the spec gives its arguments; counts this rank's file writes and
+  digests its parameters and EMA shadow.
+"""
+
+import hashlib
+import json
+import os
+import sys
+import time
+
+START = time.monotonic()
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from sph_retina_tpu_torch import parallel  # noqa: E402
+from sph_retina_tpu_torch import test as test_cli  # noqa: E402
+from sph_retina_tpu_torch import train as train_cli  # noqa: E402
+from sph_retina_tpu_torch.engine import runner  # noqa: E402
+from sph_retina_tpu_torch.engine.builder import build_tx  # noqa: E402
+from sph_retina_tpu_torch.engine.zoo import (  # noqa: E402
+    get_family,
+    make_generic_train_step,
+)
+from sph_retina_tpu_torch.utils.config import (  # noqa: E402
+    apply_overrides,
+    load_config,
+)
+
+
+def digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def steps(spec: dict, rank: int, world: int) -> dict:
+    """Also run in the test's own process at world 1, on the whole batch."""
+    out = {}
+    for name, model_spec in spec["models"].items():
+        cfg = apply_overrides(load_config(model_spec["config"]),
+                              model_spec["options"])
+        family = get_family(cfg)
+        model, det_cfg = family.build(cfg)
+        model.load_state_dict(torch.load(model_spec["weights"]))
+        optimizer = build_tx(cfg, model, steps_per_epoch=1,
+                             num_processes=world)
+        step = make_generic_train_step(family, model, det_cfg, optimizer)
+        with np.load(model_spec["batch"]) as f:
+            full = {k: f[k] for k in f.files}
+        n = full["images"].shape[0] // world
+        half = {k: torch.from_numpy(v[rank * n:(rank + 1) * n])
+                for k, v in full.items() if k != "img_id"}
+        synced = {}
+        real_step = optimizer.step
+
+        def stepping():
+            synced.update({k: p.grad.clone() for k, p in
+                           zip(optimizer.names, optimizer.params)})
+            real_step()
+
+        optimizer.step = stepping
+        metrics = step(half)
+        torch.save({"grads": synced, "params": model.state_dict(),
+                    "metrics": {k: float(v) for k, v in metrics.items()}},
+                   os.path.join(spec["out_dir"], f"{name}_rank{rank}.pt"))
+        out[name] = digest(synced.values())
+    return out
+
+
+def train(spec: dict, rank: int, world: int) -> dict:
+    writes = []
+    write = runner._write_atomically
+
+    def counting(path, fn):
+        writes.append(os.path.basename(path))
+        return write(path, fn)
+
+    runner._write_atomically = counting
+    built = {}
+    build = train_cli.build_training
+
+    def capturing(*args, **kwargs):
+        built["parts"] = build(*args, **kwargs)
+        return built["parts"]
+
+    train_cli.build_training = capturing
+    assert train_cli.main(spec["train_argv"] + ["--launcher", "torch"]) == 0
+    model, _, _, optimizer, _ = built["parts"]
+    out = {"writes": writes, "params": digest(model.state_dict().values()),
+           "ema": digest(optimizer.ema) if optimizer.ema else None}
+    if spec.get("test_argv"):
+        assert test_cli.main(spec["test_argv"] + ["--launcher", "torch"]) \
+            == 0
+    return out
+
+
+def main() -> int:
+    sys.modules["torch.utils.tensorboard"] = None  # it imports TensorFlow
+    job, spec_path = sys.argv[1:]
+    with open(spec_path) as f:
+        spec = json.load(f)
+    with parallel.process_group("torch", device="cpu",
+                                timeout_s=spec["timeout_s"]) as (rank,
+                                                                 world):
+        out = {"steps": steps, "train": train}[job](spec, rank, world)
+        parallel.coordination_barrier("done", timeout_s=spec["timeout_s"])
+    print(json.dumps({"rank": rank, "world": world,
+                      "seconds": time.monotonic() - START, **out}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
