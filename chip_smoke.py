@@ -24,7 +24,10 @@ transfer, the ``auto`` policy, copies on a stream of their own, the
 evaluation's OOM ladder) on 960x1920 panoramas; pretrained weights and
 result analysis (``--load-backbone`` from torchvision-layout ResNet-50 and
 VGG16 files, ``test.py --save-raw``, the four analysis tools on the card and
-on the CPU, an mmdet checkpoint converted and served); and the IoU tool
+on the CPU, an mmdet checkpoint converted and served); the
+corruption-robustness benchmark and the offline scoring tools
+(``test_robustness``, ``robustness_eval``, ``eval_metric``,
+``eval_pr_curve``) on 960x1920 panoramas without OpenCV; and the IoU tool
 (``benchmark_iou.main``, the kernel and the other backends) — and holds
 every CUDA kernel of those paths against its plain PyTorch version on the
 card.
@@ -132,7 +135,21 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             same 8 images, K1 once a step a rank at (128, 98208), 8 images
             after the gather's de-duplication, only rank 0 writing; the
             gradient all-reduce's ms a step in both
-19. the kernels' summary line, then the last line
+19. robustness  the corruption-robustness benchmark and the offline scoring
+            tools on the rotated config, ``cv2`` made unimportable, on 4
+            960x1920 panoramas it writes: each of the 15 corruptions at
+            severity 3 on the host (ms an image, median of 4; the same bytes
+            twice; a mean change over 0.5 level); a checkpoint from 2 steps
+            of ``train.main``; ``test_robustness.main --corruptions
+            benchmark --severities 0 3`` (16 evaluations: seconds, the
+            loader's images a second, K1 once a val image in each; the JAX
+            package's JSON layout, finite metrics) and ``robustness_eval``;
+            ``test.main --save-raw`` (metrics within 1e-4 of the tool's clean
+            entry); ``eval_metric`` on the raw file (within 1e-6 of
+            ``test.main``'s); ``eval_pr_curve`` (numeric without matplotlib,
+            said on a ``robustness_plots`` line; K1 once a val image); K1
+            bitwise its plain version on the last NMS input
+20. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
 Weights are random, made from ``--seed``; no number printed here says
@@ -174,10 +191,14 @@ from sph_retina_tpu_torch import coco_error_analysis as error_cli
 from sph_retina_tpu_torch import confusion_matrix as confusion_cli
 from sph_retina_tpu_torch import convert_reference_checkpoint as convert_cli
 from sph_retina_tpu_torch import deployment_test as deployment_cli
+from sph_retina_tpu_torch import eval_metric as metric_cli
+from sph_retina_tpu_torch import eval_pr_curve as pr_cli
 from sph_retina_tpu_torch import export as export_cli
 from sph_retina_tpu_torch import occluded_recall as recall_cli
 from sph_retina_tpu_torch import publish as publish_cli
+from sph_retina_tpu_torch import robustness_eval as summary_cli
 from sph_retina_tpu_torch import test as test_cli
+from sph_retina_tpu_torch import test_robustness as robust_cli
 from sph_retina_tpu_torch import train as train_cli
 from sph_retina_tpu_torch.apis import inference_detector, init_detector
 from sph_retina_tpu_torch.boxes import nms as nms_module
@@ -193,6 +214,7 @@ from sph_retina_tpu_torch.engine.builder import build_datasets
 from sph_retina_tpu_torch.engine.eval import eval_spherical_map
 from sph_retina_tpu_torch.engine.zoo import get_family
 from sph_retina_tpu_torch.data import (
+    DataLoader,
     PinnedStaging,
     SphCocoDataset,
     SphPipeline,
@@ -201,6 +223,10 @@ from sph_retina_tpu_torch.data import (
     policy,
     prefetch_to_device,
     to_device,
+)
+from sph_retina_tpu_torch.data.corruptions import (
+    BENCHMARK_CORRUPTIONS,
+    corrupt,
 )
 from sph_retina_tpu_torch.data.pipeline import (
     IMAGENET_STD,
@@ -2747,14 +2773,16 @@ CONVERSION_TOLERANCE = 1e-4  # the card's I420 conversion against the CPU's
 
 
 def write_panoramas(root: str, split: str, n_images: int, num_classes: int,
-                    seed: int) -> tuple[str, str]:
+                    seed: int, grain: int = 0) -> tuple[str, str]:
     """A COCO-style set of ``INPUT_SIZE`` panoramas with ``write_coco``'s
     boxes: smooth colour gradients (seeded phases) with each box painted at
     its equirectangular footprint and the whole blurred by
     ``INPUT_BOX_BLUR`` px, so that the chroma is band-limited as in the
-    smooth content the JAX package's I420 bound is stated for; the first
-    image a PNG, the rest JPEGs at ``INPUT_JPEG_QUALITY``. Returns
-    (annotation file, image directory)."""
+    smooth content the JAX package's I420 bound is stated for; with
+    ``grain``, seeded uniform noise of up to ``grain`` levels added after
+    the blur (a texture for blurs to act on); the first image a PNG, the
+    rest JPEGs at ``INPUT_JPEG_QUALITY``. Returns (annotation file, image
+    directory)."""
     from PIL import Image, ImageFilter
 
     h, w = INPUT_SIZE
@@ -2787,6 +2815,10 @@ def write_panoramas(root: str, split: str, n_images: int, num_classes: int,
                 "iscrowd": 0})
         image = Image.fromarray(canvas).filter(
             ImageFilter.GaussianBlur(INPUT_BOX_BLUR))
+        if grain:
+            noise = rng.integers(-grain, grain + 1, (h, w, 3))
+            image = Image.fromarray(np.clip(np.asarray(image, np.int16)
+                                            + noise, 0, 255).astype(np.uint8))
         name = f"{split}_{img_id:04d}." + ("png" if img_id == 1 else "jpg")
         image.save(os.path.join(img_dir, name),
                    **({} if img_id == 1 else {"quality": INPUT_JPEG_QUALITY}))
@@ -4134,6 +4166,285 @@ def phase_parallel(seed: int, reps: int) -> tuple[int, list]:
     return launches, checks
 
 
+ROBUST_VAL_IMAGES = 4       # INPUT_SIZE panoramas: one batch, one K1 an image
+ROBUST_SEVERITIES = (0, 3)  # the clean set once, then each corruption at 3
+ROBUST_TRAIN_STEPS = 2      # the checkpoint the tools score
+ROBUST_GRAIN = 24           # levels of texture on the panoramas (the blurs
+                            # change smooth gradients by < 0.5 level)
+ROBUST_CLEAN_TOLERANCE = 1e-4  # the tool's clean entry against test.main's
+
+
+def _metric_gap(got: dict, want: dict, what: str) -> float:
+    """The largest difference between two dicts of float metrics with the
+    same keys, every value finite."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: keys {sorted(got)} vs {sorted(want)}")
+    if not all(isinstance(v, float) and math.isfinite(v)
+               for v in (*got.values(), *want.values())):
+        raise AssertionError(f"{what}: {got} vs {want}")
+    return max(abs(got[k] - want[k]) for k in got)
+
+
+def phase_robustness(seed: int, reps: int) -> tuple[int, dict]:
+    """The corruption-robustness benchmark and the offline scoring tools on
+    the rotated config at full width, with ``cv2`` made unimportable. On
+    ``ROBUST_VAL_IMAGES`` panoramas at ``INPUT_SIZE`` (``write_panoramas``
+    with ``ROBUST_GRAIN``):
+    (1) each of the 15 corruptions at severity 3 on each image, its host
+    ms (median of the images), the same bytes from a second call, a mean
+    change of more than 0.5 level; (2) a checkpoint from
+    ``ROBUST_TRAIN_STEPS`` steps of ``train.main`` (the class bias spread,
+    so that the detector detects); (3) ``test_robustness.main
+    --corruptions benchmark --severities 0 3``: 16 evaluations (seconds,
+    the loader's images a second, K1 once a val image in each), the JAX
+    package's JSON layout with finite metrics, then ``robustness_eval``;
+    (4) ``test.main --save-raw``: its metrics within
+    ``ROBUST_CLEAN_TOLERANCE`` of the tool's clean entry; (5)
+    ``eval_metric.main`` on the raw file within ``TOOL_TOLERANCE`` of
+    ``test.main``'s; (6) ``eval_pr_curve.main``, numeric where matplotlib
+    is missing (said on a ``robustness_plots`` line), K1 once a val image;
+    (7) K1 bitwise its plain version on the last NMS input. Returns K1's
+    launches over (2)-(6) and the check of (7)."""
+    import importlib.util
+
+    from PIL import Image
+
+    t_phase = time.perf_counter()
+    cfg = load_config(CONFIG)
+    classes = cfg["model"]["num_classes"]
+    cv2_installed = importlib.util.find_spec("cv2") is not None
+    plotting = importlib.util.find_spec("matplotlib") is not None
+    seconds = {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    saved_cv2 = sys.modules.pop("cv2", None)
+    sys.modules["cv2"] = None  # an import of OpenCV fails from here on
+    try:
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "build")) as tmp:
+            ann, img_dir = write_panoramas(tmp, "val", ROBUST_VAL_IMAGES,
+                                           classes, seed, ROBUST_GRAIN)
+            cfg_path = os.path.join(tmp, "robust_cfg.py")
+            with open(cfg_path, "w") as f:
+                f.write(f"_base_ = [{CONFIG!r}]\ndata = dict(test=dict("
+                        f"ann_file={ann!r}, img_prefix={img_dir!r}))\n")
+
+            # (1) the corruptions on the host, at the panoramas' size
+            images = []
+            for name in sorted(os.listdir(img_dir)):
+                with Image.open(os.path.join(img_dir, name)) as im:
+                    images.append(np.asarray(im.convert("RGB")))
+            if {im.shape for im in images} != {(*INPUT_SIZE, 3)}:
+                raise AssertionError(f"{[im.shape for im in images]}")
+            per = {}
+            for name in BENCHMARK_CORRUPTIONS:
+                ms, outs = [], []
+                for i, img in enumerate(images):
+                    t0 = time.perf_counter()
+                    outs.append(corrupt(img, name, 3, seed=i))
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                change = float(np.abs(outs[0].astype(np.int16)
+                                      - images[0]).mean())
+                if outs[0].shape != images[0].shape \
+                        or outs[0].dtype != np.uint8 or not change > 0.5:
+                    raise AssertionError(f"{name}: {outs[0].shape} "
+                                         f"{outs[0].dtype}, {change} levels")
+                if not np.array_equal(corrupt(images[0], name, 3, seed=0),
+                                      outs[0]):
+                    raise AssertionError(f"{name}: two calls, two images")
+                per[name] = {"host_ms": statistics.median(ms),
+                             "host_ms_each": ms,
+                             "mean_change_levels": change}
+            seconds["corruptions_on_host"] = sum(
+                sum(p["host_ms_each"]) for p in per.values()) / 1e3
+            del images
+
+            # (2) the checkpoint
+            real_build = train_cli.build_training
+
+            def spreading(*args, **kwargs):
+                parts = real_build(*args, **kwargs)
+                bias = parts[0].bbox_head.retina_cls.bias
+                with torch.no_grad():
+                    bias.copy_(torch.from_numpy(np.random.default_rng(
+                        seed).normal(-1.0, 1.0, bias.shape).astype(
+                            np.float32)))
+                return parts
+
+            work = os.path.join(tmp, "work")
+            train_cli.build_training = spreading
+            try:
+                run = drive_trainer(CONFIG, ROBUST_TRAIN_STEPS, TRAIN_BATCH,
+                                    seed, work=work)
+            finally:
+                train_cli.build_training = real_build
+            seconds["train_main"] = run["seconds"]
+            train_launches = run["launches"]
+            if train_launches != ROBUST_TRAIN_STEPS:
+                raise AssertionError(f"{train_launches} K1 launches over "
+                                     f"{ROBUST_TRAIN_STEPS} steps")
+            del run
+            ckpts = os.path.join(work, "ckpts")
+
+            # (3) the benchmark
+            evals, rates, nms_calls = [], [], []
+            real_eval, real_epoch = robust_cli.evaluate_dataset, \
+                DataLoader.epoch
+
+            def counted(*args, **kwargs):
+                before = sph2pob_iou_pairwise.launches
+                t0 = time.perf_counter()
+                out = real_eval(*args, **kwargs)
+                torch.cuda.synchronize()
+                evals.append({"seconds": time.perf_counter() - t0,
+                              "launches": sph2pob_iou_pairwise.launches
+                              - before, "n_images": out["n_images"]})
+                return out
+
+            def timed_epoch(self, epoch=0):
+                t0, n, t1 = time.perf_counter(), 0, None
+                for batch in real_epoch(self, epoch):
+                    n += len(batch["images"])
+                    t1 = time.perf_counter()
+                    yield batch
+                rates.append(n / (t1 - t0))
+
+            robust_json = os.path.join(tmp, "robust.json")
+            robust_cli.evaluate_dataset = counted
+            DataLoader.epoch = timed_epoch
+            nms_module.sph2pob_iou_pairwise = _recording(
+                sph2pob_iou_pairwise, nms_calls, keep_last=True)
+            try:
+                sph2pob_iou_pairwise.launches = 0
+                said, seconds["test_robustness"] = _timed(lambda: _said(
+                    lambda: robust_cli.main([
+                        cfg_path, ckpts, "--corruptions", "benchmark",
+                        "--severities", *map(str, ROBUST_SEVERITIES),
+                        "--out", robust_json])))
+                torch.cuda.synchronize()
+                tool_launches = sph2pob_iou_pairwise.launches
+            finally:
+                robust_cli.evaluate_dataset = real_eval
+                DataLoader.epoch = real_epoch
+            corrupted = [str(v) for v in ROBUST_SEVERITIES if v]
+            n_evals = 1 + len(BENCHMARK_CORRUPTIONS) * len(corrupted)
+            if len(evals) != n_evals or len(rates) != n_evals or any(
+                    e["launches"] != ROBUST_VAL_IMAGES
+                    or e["n_images"] != ROBUST_VAL_IMAGES for e in evals) \
+                    or tool_launches != n_evals * ROBUST_VAL_IMAGES:
+                raise AssertionError(f"{tool_launches} K1 launches over "
+                                     f"the evaluations {evals}")
+            with open(robust_json) as f:
+                results = json.load(f)
+            if list(results) != ["clean", *BENCHMARK_CORRUPTIONS] \
+                    or list(results["clean"]) != ["0"] \
+                    or any(list(results[n]) != corrupted
+                           for n in BENCHMARK_CORRUPTIONS):
+                raise AssertionError("the JSON's layout: " + str(
+                    {k: list(v) for k, v in results.items()}))
+            runs = [("clean", "0")] + [(n, v) for n in BENCHMARK_CORRUPTIONS
+                                       for v in corrupted]
+            for (name, sev), e, r in zip(runs, evals, rates):
+                _metric_gap(results[name][sev], results["clean"]["0"], name)
+                per.setdefault(name, {})[f"severity_{sev}"] = {
+                    "evaluation_s": e["seconds"], "loader_images_per_s": r}
+            summary = summary_cli.get_results(robust_json)
+            said_summary = _said(lambda: summary_cli.main([robust_json]))
+            if "[P]" not in said_summary:
+                raise AssertionError(f"robustness_eval said "
+                                     f"{said_summary!r}")
+
+            # (4) test.py --save-raw on the same checkpoint and images
+            raw, metrics_json = (os.path.join(tmp, n) for n in
+                                 ("raw.npz", "test_metrics.json"))
+            sph2pob_iou_pairwise.launches = 0
+            _, seconds["test_main"] = _timed(lambda: _said(
+                lambda: test_cli.main([cfg_path, ckpts, "--save-raw", raw,
+                                       "--out", metrics_json])))
+            torch.cuda.synchronize()
+            test_launches = sph2pob_iou_pairwise.launches
+            with open(metrics_json) as f:
+                test_metrics = json.load(f)
+            clean_gap = _metric_gap(results["clean"]["0"], test_metrics,
+                                    "clean vs test.main")
+            if test_launches != ROBUST_VAL_IMAGES \
+                    or not clean_gap <= ROBUST_CLEAN_TOLERANCE:
+                raise AssertionError(f"test.main: {test_launches} K1 "
+                                     f"launches, clean gap {clean_gap}")
+
+            # (5) eval_metric on the raw file
+            rescored_json = os.path.join(tmp, "rescored.json")
+            _, seconds["eval_metric"] = _timed(lambda: _said(
+                lambda: metric_cli.main([cfg_path, raw, "--out",
+                                         rescored_json])))
+            with open(rescored_json) as f:
+                rescored = json.load(f)
+            rescore_gap = _metric_gap(rescored, test_metrics,
+                                      "eval_metric vs test.main")
+            if not rescore_gap <= TOOL_TOLERANCE:
+                raise AssertionError(f"eval_metric is {rescore_gap} from "
+                                     "test.main")
+
+            # (6) eval_pr_curve
+            png = os.path.join(tmp, "pr.png")
+            sph2pob_iou_pairwise.launches = 0
+            said_pr, seconds["eval_pr_curve"] = _timed(lambda: _said(
+                lambda: pr_cli.main([cfg_path, ckpts, "--out", png])))
+            torch.cuda.synchronize()
+            pr_launches = sph2pob_iou_pairwise.launches
+            n_curves = said_pr.count("AP=")
+            plotted = f"saved {png}" in said_pr
+            if pr_launches != ROBUST_VAL_IMAGES or plotted != plotting \
+                    or (not plotting and f"{png} not plotted"
+                        not in said_pr):
+                raise AssertionError(f"eval_pr_curve: {pr_launches} K1 "
+                                     f"launches, said {said_pr!r}")
+            if not plotting:
+                emit({"phase": "robustness_plots",
+                      "matplotlib_importable": False,
+                      "note": "matplotlib is not installed on this host: "
+                              "eval_pr_curve computed its curves and did "
+                              "not plot them; the plot is tested on the "
+                              "CPU only (tests/test_torch_robustness.py)"})
+    finally:
+        nms_module.sph2pob_iou_pairwise = sph2pob_iou_pairwise
+        del sys.modules["cv2"]
+        if saved_cv2 is not None:
+            sys.modules["cv2"] = saved_cv2
+
+    # (7) K1 on the last NMS input
+    (shapes, b1, b2), = nms_calls
+    on_input = {"input": "robustness: the last NMS input of eval_pr_curve",
+                **check_kernel(KERNELS[0], b1, b2, reps, identical=False)}
+    if not on_input["bitwise_equal"] or shapes[1][1] != 5:
+        raise AssertionError(f"K1 at {shapes} differs from its plain "
+                             f"version by {on_input['max_abs_err']}")
+    rates = {(n, k): v["loader_images_per_s"] for n in BENCHMARK_CORRUPTIONS
+             for k, v in per[n].items() if k.startswith("severity_")}
+    slowest = min(rates, key=rates.get)
+    launches = train_launches + tool_launches + test_launches + pr_launches
+    emit({"phase": "robustness", "config": os.path.relpath(CONFIG, ROOT),
+          "input_size": list(INPUT_SIZE), "val_images": ROBUST_VAL_IMAGES,
+          "severities": list(ROBUST_SEVERITIES),
+          "cv2_installed": cv2_installed, "cv2_importable_in_phase": False,
+          "per_corruption": per,
+          "loader_images_per_s": {
+              "clean": per["clean"]["severity_0"]["loader_images_per_s"],
+              "slowest_corruption": "/".join(slowest),
+              "slowest": rates[slowest]},
+          "summary": summary, "clean_vs_test_main": clean_gap,
+          "eval_metric_vs_test_main": rescore_gap,
+          "test_main_metrics": test_metrics, "pr_curves": n_curves,
+          "matplotlib_importable": plotting,
+          "kernel_launches": {"train": train_launches,
+                              "test_robustness": tool_launches,
+                              "test_save_raw": test_launches,
+                              "eval_pr_curve": pr_launches,
+                              "whole_phase": launches},
+          "kernel_on_nms_input": on_input, "seconds": seconds,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches, on_input
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4187,12 +4498,14 @@ def main(argv=None) -> int:
     launches["sph2pob_iou_pairwise"] += trained
     trained, on_parallel_inputs = phase_parallel(args.seed, args.reps)
     launches["sph2pob_iou_pairwise"] += trained
+    trained, on_robust_input = phase_robustness(args.seed, args.reps)
+    launches["sph2pob_iou_pairwise"] += trained
     # K1 on the inputs its paths gave it, beside its seeded shapes
     shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input,
                                        on_iou_input, on_ssd_input,
                                        *on_frcnn_input, on_val_nms_input,
                                        on_input_assign, on_pretrained_assign,
-                                       *on_parallel_inputs]
+                                       *on_parallel_inputs, on_robust_input]
     idle = [k.name for k in KERNELS if launches[k.name] < 1]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

@@ -32,7 +32,8 @@ from sph_retina_tpu_torch.utils.publish import load_published
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex",
-             "sph_retina_tpu", "triton"}  # both kernels are CUDA C++
+             "sph_retina_tpu", "triton",  # both kernels are CUDA C++
+             "cv2"}  # the card's host has no OpenCV: data/imgproc.py
 
 
 def _port_sources():
@@ -57,9 +58,14 @@ def _imported_roots(path):
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     """Every import statement of every module of the port and of
     ``chip_smoke.py``, wherever in the file it stands (function bodies
-    included), names neither JAX nor anything of ``sph_retina_tpu``."""
+    included), names neither JAX nor anything of ``sph_retina_tpu``, nor
+    OpenCV."""
     files = _port_sources()
     assert len(files) > 35
+    names = {os.path.relpath(f, REPO) for f in files}
+    assert {f"sph_retina_tpu_torch/{m}.py" for m in (
+        "data/imgproc", "data/corruptions", "test_robustness",
+        "robustness_eval", "eval_metric", "eval_pr_curve")} <= names
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{os.path.relpath(path, REPO)} imports {sorted(bad)}"
