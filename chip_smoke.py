@@ -27,8 +27,12 @@ VGG16 files, ``test.py --save-raw``, the four analysis tools on the card and
 on the CPU, an mmdet checkpoint converted and served); the
 corruption-robustness benchmark and the offline scoring tools
 (``test_robustness``, ``robustness_eval``, ``eval_metric``,
-``eval_pr_curve``) on 960x1920 panoramas without OpenCV; and the IoU tool
-(``benchmark_iou.main``, the kernel and the other backends) — and holds
+``eval_pr_curve``) on 960x1920 panoramas without OpenCV; drawing, demos
+and anchor optimisation (``image_demo``, ``show_result``, the perspective
+camera, ``optimize_anchors``, ``vis_kent``, the plots, ``analyze_logs``,
+``create_result_gif``, ``browse_dataset``, every figure without
+matplotlib); and the IoU tool (``benchmark_iou.main``, the kernel and the
+other backends) — and holds
 every CUDA kernel of those paths against its plain PyTorch version on the
 card.
 
@@ -114,9 +118,9 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             the last, K1 once a step; ``test.main --synthetic --save-raw``
             (K1 once a val image; the raw file's keys); the four analysis
             tools on it with ``--device cuda`` and ``cpu`` (integers equal,
-            floats within 1e-6; without matplotlib the plotting tools' numeric
-            part, said on a ``pretrained_plots`` line); a seeded mmdet
-            RetinaNet-R50 checkpoint through ``convert_reference_checkpoint``
+            floats within 1e-6; the plotting tools' figures written); a
+            seeded mmdet RetinaNet-R50 checkpoint through
+            ``convert_reference_checkpoint``
             and 3 requests (K1 once each, bitwise the detector loaded from
             ``port_mmdet_retinanet``); the SSD config from a seeded VGG16
             file, 2 steps (the 13 convs the file's, conv6 / conv7 / L2Norm
@@ -146,10 +150,26 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             package's JSON layout, finite metrics) and ``robustness_eval``;
             ``test.main --save-raw`` (metrics within 1e-4 of the tool's clean
             entry); ``eval_metric`` on the raw file (within 1e-6 of
-            ``test.main``'s); ``eval_pr_curve`` (numeric without matplotlib,
-            said on a ``robustness_plots`` line; K1 once a val image); K1
+            ``test.main``'s); ``eval_pr_curve`` (its figure written; K1
+            once a val image); K1
             bitwise its plain version on the last NMS input
-20. the kernels' summary line, then the last line
+20. visualize  drawing, demos and anchor optimisation on the rotated
+            config: ``train.main`` 2 steps (K1 once a step; its log for
+            ``analyze_logs``); ``image_demo.main`` on a 960x1920 PNG
+            panorama with a checkpoint of seeded, calibrated weights (load,
+            read, predict, draw and save timed apart; a detection drawn; K1
+            once; the PNG bitwise ``show_result(det, img,
+            inference_detector(det, img))``, K1 once more; K1 bitwise its
+            plain version on the demo's NMS input); the perspective
+            camera's views on the card within 1 level of the CPU's, ms
+            each; ``optimize_anchors --synthetic``: k-means on the card
+            within 1e-3 degree of the CPU, differential evolution (200
+            generations, population 48, K = 45) no worse than the config's
+            anchors, seconds and peak memory; ``vis_kent``, the IoU scatter
+            and curve plots, ``analyze_logs``, ``create_result_gif``,
+            ``browse_dataset``: every file written, neither matplotlib nor
+            imageio imported
+21. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
 Weights are random, made from ``--seed``; no number printed here says
@@ -185,22 +205,33 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from sph_retina_tpu_torch import analyze_logs as logs_cli
 from sph_retina_tpu_torch import analyze_results as analyze_cli
+from sph_retina_tpu_torch import apis
 from sph_retina_tpu_torch import benchmark_iou
+from sph_retina_tpu_torch import browse_dataset as browse_cli
 from sph_retina_tpu_torch import coco_error_analysis as error_cli
 from sph_retina_tpu_torch import confusion_matrix as confusion_cli
 from sph_retina_tpu_torch import convert_reference_checkpoint as convert_cli
+from sph_retina_tpu_torch import create_result_gif as gif_cli
 from sph_retina_tpu_torch import deployment_test as deployment_cli
 from sph_retina_tpu_torch import eval_metric as metric_cli
 from sph_retina_tpu_torch import eval_pr_curve as pr_cli
 from sph_retina_tpu_torch import export as export_cli
+from sph_retina_tpu_torch import image_demo as demo_cli
 from sph_retina_tpu_torch import occluded_recall as recall_cli
+from sph_retina_tpu_torch import optimize_anchors as anchors_cli
 from sph_retina_tpu_torch import publish as publish_cli
 from sph_retina_tpu_torch import robustness_eval as summary_cli
 from sph_retina_tpu_torch import test as test_cli
 from sph_retina_tpu_torch import test_robustness as robust_cli
 from sph_retina_tpu_torch import train as train_cli
-from sph_retina_tpu_torch.apis import inference_detector, init_detector
+from sph_retina_tpu_torch import vis_kent as kent_cli
+from sph_retina_tpu_torch.apis import (
+    inference_detector,
+    init_detector,
+    show_result,
+)
 from sph_retina_tpu_torch.boxes import nms as nms_module
 from sph_retina_tpu_torch.engine import evaluator, runner
 from sph_retina_tpu_torch.engine import train as engine_train
@@ -210,7 +241,7 @@ from sph_retina_tpu_torch.engine.analysis import (
     per_image_scores,
     save_raw_results,
 )
-from sph_retina_tpu_torch.engine.builder import build_datasets
+from sph_retina_tpu_torch.engine.builder import build_datasets, build_tx
 from sph_retina_tpu_torch.engine.eval import eval_spherical_map
 from sph_retina_tpu_torch.engine.zoo import get_family
 from sph_retina_tpu_torch.data import (
@@ -232,6 +263,7 @@ from sph_retina_tpu_torch.data.pipeline import (
     IMAGENET_STD,
     maybe_normalize_images,
 )
+from sph_retina_tpu_torch.iou import sph_overlaps
 from sph_retina_tpu_torch.losses import (
     sph2pob_iou_loss,
     sph_kent_loss,
@@ -256,6 +288,11 @@ from sph_retina_tpu_torch.serve import make_handler
 from sph_retina_tpu_torch.utils.config import apply_overrides, load_config
 from sph_retina_tpu_torch.utils.device import resolve_device
 from sph_retina_tpu_torch.utils.publish import load_published
+from sph_retina_tpu_torch.visualize import (
+    PerspectiveCamera,
+    plot_curve,
+    plot_iou_scatter,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs",
@@ -3429,37 +3466,35 @@ def jittered_ground_truth(arrays: dict, seed: int) -> dict:
 
 
 def run_analysis_tools(tmp: str, raw_npz: str, analysis_cfg: str,
-                       num_classes: int, plotting: bool) -> dict:
+                       num_classes: int) -> dict:
     """The four tools on the raw file, with ``--device cuda`` and again
     with ``--device cpu``: integer outputs equal, floats within
-    ``TOOL_TOLERANCE``, each tool's seconds. Without matplotlib the two
-    plotting tools run their numeric part (the functions their ``main``
-    calls, with its defaults)."""
+    ``TOOL_TOLERANCE``, each tool's seconds, the figures of the two
+    plotting tools written (``visualize/canvas.py``, no matplotlib)."""
     arrays = load_raw_results(raw_npz)
     tmp = os.path.join(tmp, os.path.basename(raw_npz)[:-4])
-    out = {}
+    out, figures = {}, {}
     for device in ("cuda", "cpu"):
         run = {}
         d = os.path.join(tmp, f"tools_{device}")
-        if plotting:
-            _, run["confusion_matrix_s"] = _timed(lambda: _said(
-                lambda: confusion_cli.main([CONFIG, raw_npz, d, "--device",
-                                            device])))
-            run["confusion_matrix"] = np.load(
-                os.path.join(d, "confusion_matrix.npy"))
-            _, run["coco_error_analysis_s"] = _timed(lambda: _said(
-                lambda: error_cli.main([CONFIG, raw_npz, d, "--device",
+        _, run["confusion_matrix_s"] = _timed(lambda: _said(
+            lambda: confusion_cli.main([CONFIG, raw_npz, d, "--device",
                                         device])))
-            with open(os.path.join(d, "error_analysis.json")) as f:
-                run["coco_error_analysis"] = json.load(f)
-        else:
-            run["confusion_matrix"], run["confusion_matrix_s"] = _timed(
-                lambda: confusion_matrix(arrays, num_classes, device=device))
-            ladder, run["coco_error_analysis_s"] = _timed(
-                lambda: error_cli.decompose(arrays, num_classes, "unbiased",
-                                            100, device))
-            run["coco_error_analysis"] = {"ps": ladder["ps"],
-                                          "valid": ladder["valid"]}
+        run["confusion_matrix"] = np.load(
+            os.path.join(d, "confusion_matrix.npy"))
+        _, run["coco_error_analysis_s"] = _timed(lambda: _said(
+            lambda: error_cli.main([CONFIG, raw_npz, d, "--device",
+                                    device])))
+        with open(os.path.join(d, "error_analysis.json")) as f:
+            run["coco_error_analysis"] = json.load(f)
+        figures[device] = {n: os.path.getsize(os.path.join(d, n))
+                           if os.path.exists(os.path.join(d, n)) else 0
+                           for n in sorted(os.listdir(d))
+                           if n.endswith(".png")}
+        if not figures[device].get("confusion_matrix.png") \
+                or not figures[device].get("bbox-allclass-allarea.png") \
+                or not all(figures[device].values()):
+            raise AssertionError(f"figures on {device}: {figures[device]}")
         os.makedirs(tmp, exist_ok=True)
         recall_json = os.path.join(tmp, f"recall_{device}.json")
         _, run["occluded_recall_s"] = _timed(lambda: _said(
@@ -3501,7 +3536,7 @@ def run_analysis_tools(tmp: str, raw_npz: str, analysis_cfg: str,
             "confusion_matrix_total": int(cm.sum()),
             "occluded_recall": card["occluded_recall"],
             "per_image_map_mean": float(card["per_image_map"].mean()),
-            "gallery": card["gallery"]}
+            "gallery": card["gallery"], "figures_bytes": figures}
 
 
 def phase_pretrained(seed: int, reps: int) -> tuple[int, dict]:
@@ -3523,14 +3558,11 @@ def phase_pretrained(seed: int, reps: int) -> tuple[int, dict]:
     file's, conv6, conv7 and the L2Norm scale their initialisation, K1 once
     a step at (256, 49056) D=4. Returns K1's launches over (2), (3), (5)
     and (6) and its check on the last assignment input of (2)."""
-    import importlib.util
-
     device = resolve_device()
     torch.backends.cudnn.deterministic = True
     cfg = load_config(CONFIG)
     classes, box_version = cfg["model"]["num_classes"], \
         cfg["model"]["box_version"]
-    plotting = importlib.util.find_spec("matplotlib") is not None
     seconds = {}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
@@ -3662,21 +3694,14 @@ def phase_pretrained(seed: int, reps: int) -> tuple[int, dict]:
         shutil.rmtree(os.path.join(work, "ckpts"))
 
         # (4) the analysis tools, on the card and on the CPU
-        if not plotting:
-            emit({"phase": "pretrained_plots", "matplotlib_importable": False,
-                  "note": "matplotlib is not installed on this host: "
-                          "confusion_matrix and coco_error_analysis run "
-                          "their numeric part here, on the card and on the "
-                          "CPU; their plots are tested on the CPU only "
-                          "(tests/test_torch_analysis.py)"})
         analysis_cfg, seconds["write_analysis_set"] = _timed(
             lambda: write_synthetic_as_coco(os.path.join(tmp, "coco"), cfg))
         tools = {"test_cli_raw": run_analysis_tools(
-            tmp, raw_npz, analysis_cfg, classes, plotting)}
+            tmp, raw_npz, analysis_cfg, classes)}
         matched_npz = os.path.join(tmp, "ground_truth_jittered.npz")
         save_raw_results(matched_npz, jittered_ground_truth(arrays, seed))
         tools["ground_truth_jittered"] = run_analysis_tools(
-            tmp, matched_npz, analysis_cfg, classes, plotting)
+            tmp, matched_npz, analysis_cfg, classes)
         if not tools["ground_truth_jittered"]["confusion_matrix_on_diagonal"]:
             raise AssertionError("the jittered ground truth matches nothing")
 
@@ -3780,7 +3805,7 @@ def phase_pretrained(seed: int, reps: int) -> tuple[int, dict]:
           "seconds": seconds, "train_losses": train_losses,
           "ema_checked": ema_checked, "stage2_moved": stage2_moved,
           "raw_file_bytes": raw_bytes, "val_detections": detections,
-          "tools": tools, "matplotlib_importable": plotting,
+          "tools": tools,
           "served_detections": served_dets, "ssd_losses": ssd_losses,
           "kernel_launches": {"train": PRETRAINED_STEPS,
                               "test_save_raw": test_launches,
@@ -4201,8 +4226,8 @@ def phase_robustness(seed: int, reps: int) -> tuple[int, dict]:
     (4) ``test.main --save-raw``: its metrics within
     ``ROBUST_CLEAN_TOLERANCE`` of the tool's clean entry; (5)
     ``eval_metric.main`` on the raw file within ``TOOL_TOLERANCE`` of
-    ``test.main``'s; (6) ``eval_pr_curve.main``, numeric where matplotlib
-    is missing (said on a ``robustness_plots`` line), K1 once a val image;
+    ``test.main``'s; (6) ``eval_pr_curve.main``, its figure written, K1
+    once a val image;
     (7) K1 bitwise its plain version on the last NMS input. Returns K1's
     launches over (2)-(6) and the check of (7)."""
     import importlib.util
@@ -4213,7 +4238,6 @@ def phase_robustness(seed: int, reps: int) -> tuple[int, dict]:
     cfg = load_config(CONFIG)
     classes = cfg["model"]["num_classes"]
     cv2_installed = importlib.util.find_spec("cv2") is not None
-    plotting = importlib.util.find_spec("matplotlib") is not None
     seconds = {}
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     saved_cv2 = sys.modules.pop("cv2", None)
@@ -4392,19 +4416,12 @@ def phase_robustness(seed: int, reps: int) -> tuple[int, dict]:
             torch.cuda.synchronize()
             pr_launches = sph2pob_iou_pairwise.launches
             n_curves = said_pr.count("AP=")
-            plotted = f"saved {png}" in said_pr
-            if pr_launches != ROBUST_VAL_IMAGES or plotted != plotting \
-                    or (not plotting and f"{png} not plotted"
-                        not in said_pr):
+            pr_figure_bytes = os.path.getsize(png) \
+                if os.path.exists(png) else 0
+            if pr_launches != ROBUST_VAL_IMAGES \
+                    or f"saved {png}" not in said_pr or not pr_figure_bytes:
                 raise AssertionError(f"eval_pr_curve: {pr_launches} K1 "
                                      f"launches, said {said_pr!r}")
-            if not plotting:
-                emit({"phase": "robustness_plots",
-                      "matplotlib_importable": False,
-                      "note": "matplotlib is not installed on this host: "
-                              "eval_pr_curve computed its curves and did "
-                              "not plot them; the plot is tested on the "
-                              "CPU only (tests/test_torch_robustness.py)"})
     finally:
         nms_module.sph2pob_iou_pairwise = sph2pob_iou_pairwise
         del sys.modules["cv2"]
@@ -4434,11 +4451,287 @@ def phase_robustness(seed: int, reps: int) -> tuple[int, dict]:
           "summary": summary, "clean_vs_test_main": clean_gap,
           "eval_metric_vs_test_main": rescore_gap,
           "test_main_metrics": test_metrics, "pr_curves": n_curves,
-          "matplotlib_importable": plotting,
+          "pr_figure_bytes": pr_figure_bytes,
           "kernel_launches": {"train": train_launches,
                               "test_robustness": tool_launches,
                               "test_save_raw": test_launches,
                               "eval_pr_curve": pr_launches,
+                              "whole_phase": launches},
+          "kernel_on_nms_input": on_input, "seconds": seconds,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches, on_input
+
+VIS_TRAIN_STEPS = 2         # the trainer run whose log analyze_logs reads
+VIS_PANORAMAS = 3           # INPUT_SIZE panoramas; the first, a PNG, the demo's
+CAMERA = (1920, 960, 640)   # erp_w, erp_h, long_side: a view of a panorama
+CAMERA_VIEWS = ((100.0, 80.0), (355.0, 40.0), (180.0, 5.0))
+ANCHOR_TOLERANCE = 1e-3     # degrees: k-means on the card against the CPU
+SCATTER_PAIRS = 10_000
+
+
+def _score(said: str, what: str) -> float:
+    """The number after the last '=' of the line of ``said`` starting with
+    ``what``."""
+    line = next(x for x in said.splitlines() if x.startswith(what))
+    return float(line.rsplit("=", 1)[1])
+
+
+def _timing(parts: dict, name: str, fn):
+    """``fn`` that adds its seconds (the card synchronised) to
+    ``parts[name]``."""
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+        return out
+    return wrapper
+
+
+def phase_visualize(seed: int, reps: int) -> tuple[int, dict]:
+    """Drawing, demos and anchor optimisation on the rotated config at full
+    width, on ``VIS_PANORAMAS`` panoramas at ``INPUT_SIZE`` it writes:
+    (a) ``train.main``, ``VIS_TRAIN_STEPS`` steps (its log for (d)); a
+    checkpoint of seeded weights with the head calibrated on the PNG
+    panorama, written by ``Checkpointer``; ``image_demo.main`` on it (load,
+    read, predict, draw and save timed apart): a detection drawn, K1 once,
+    the PNG bitwise ``show_result(det, img, inference_detector(det, img))``
+    (K1 once more), K1 bitwise its plain version on the demo's NMS input;
+    (b) ``PerspectiveCamera(1920, 960, long_side=640).extract`` on the card
+    and on the CPU, the views within 1 level, ms each; (c)
+    ``optimize_anchors.main --synthetic``: k-means (25 sweeps) on the card
+    and on the CPU, the anchors within ``ANCHOR_TOLERANCE``; differential
+    evolution (200 generations, population 48, K = 45) on the card, its
+    score at least the config anchors', seconds and peak memory; (d)
+    ``vis_kent.main`` (``--mle``, samples, the panorama behind),
+    ``plot_iou_scatter`` / ``plot_curve`` on seeded IoUs,
+    ``analyze_logs.main`` on (a)'s log, ``create_result_gif.main`` over the
+    demo's PNGs, ``browse_dataset.main`` with and without the pipeline:
+    every file written, and neither matplotlib nor imageio imported. Returns
+    K1's launches over (a) and its check on the demo's NMS input."""
+    from PIL import Image
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    cfg = load_config(CONFIG)
+    classes = cfg["model"]["num_classes"]
+    seconds, files = {}, {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        ann, img_dir = write_panoramas(tmp, "val", VIS_PANORAMAS, classes,
+                                       seed)
+        png = os.path.join(img_dir, "val_0001.png")
+
+        # (a) the trainer's log, the checkpoint and the demo
+        work = os.path.join(tmp, "work")
+        run = drive_trainer(CONFIG, VIS_TRAIN_STEPS, TRAIN_BATCH, seed,
+                            work=work)
+        train_launches, seconds["train_main"] = run["launches"], \
+            run["seconds"]
+        del run
+        if train_launches != VIS_TRAIN_STEPS:
+            raise AssertionError(f"{train_launches} K1 launches over "
+                                 f"{VIS_TRAIN_STEPS} steps")
+        t0 = time.perf_counter()
+        det = init_detector(CONFIG, seed=seed)
+        det.model.load_state_dict(seeded_state_dict(det.model, seed))
+        panorama = det.pipeline.load_image(png)
+        head_std = calibrate_head(det, det.pipeline.resize(panorama))
+        ckpts = os.path.join(tmp, "ckpts")
+        runner.Checkpointer(ckpts).save(
+            det.model, build_tx(cfg, det.model, steps_per_epoch=1), epoch=1)
+        seconds["write_checkpoint"] = time.perf_counter() - t0
+        del det
+        demo_dir = os.path.join(tmp, "demo")
+        os.makedirs(demo_dir)
+        demo_png = os.path.join(demo_dir, "demo.png")
+        parts, nms_calls = {}, []
+        real = (demo_cli.init_detector, SphPipeline.load_image,
+                demo_cli.inference_detector, apis.draw_boxes,
+                Image.Image.save)
+        (demo_cli.init_detector, SphPipeline.load_image,
+         demo_cli.inference_detector, apis.draw_boxes, Image.Image.save) = (
+            _timing(parts, name, fn) for name, fn in zip(
+                ("load", "read", "predict", "draw", "save"), real))
+        nms_module.sph2pob_iou_pairwise = _recording(
+            sph2pob_iou_pairwise, nms_calls, keep_last=True)
+        try:
+            sph2pob_iou_pairwise.launches = 0
+            said, seconds["image_demo"] = _timed(lambda: _said(
+                lambda: demo_cli.main([png, CONFIG, ckpts, "--out",
+                                       demo_png])))
+            torch.cuda.synchronize()
+            demo_launches = sph2pob_iou_pairwise.launches
+        finally:
+            (demo_cli.init_detector, SphPipeline.load_image,
+             demo_cli.inference_detector, apis.draw_boxes,
+             Image.Image.save) = real
+            nms_module.sph2pob_iou_pairwise = sph2pob_iou_pairwise
+        n_demo = int(said.split(" with ")[1].split()[0])
+        det = init_detector(CONFIG, ckpts)
+        before = sph2pob_iou_pairwise.launches
+        result = inference_detector(det, png)
+        torch.cuda.synchronize()
+        api_launches = sph2pob_iou_pairwise.launches - before
+        shown = show_result(det, png, result,
+                            out_file=os.path.join(demo_dir, "shown.png"))
+        drawn = sum(int((r[:, -1] >= 0.3).sum()) for r in result)
+        same_png = bool(np.array_equal(np.asarray(Image.open(demo_png)),
+                                       shown))
+        if demo_launches != 1 or api_launches != 1 or drawn < 1 \
+                or n_demo != sum(len(r) for r in result) or not same_png:
+            raise AssertionError(
+                f"image_demo: {demo_launches} K1 launches, {n_demo} "
+                f"detections; the API: {api_launches} launches, {drawn} "
+                f"drawn, the same PNG: {same_png}")
+        (shapes, b1, b2), = nms_calls
+        on_input = {"input": "visualize: the NMS input of image_demo",
+                    **check_kernel(KERNELS[0], b1, b2, reps,
+                                   identical=False)}
+        if not on_input["bitwise_equal"] or shapes[1][1] != 5:
+            raise AssertionError(f"K1 at {shapes} differs from its plain "
+                                 f"version by {on_input['max_abs_err']}")
+        demo = {"detections": n_demo, "drawn_at_score_thr": drawn,
+                "png_equals_show_result": same_png,
+                "head_std_before_calibration": head_std,
+                "seconds": seconds["image_demo"], "parts_s": parts,
+                "kernel_launches": {"image_demo": demo_launches,
+                                    "inference_detector": api_launches}}
+        del det, b1, b2, nms_calls
+
+        # (b) the camera, on the card and on the CPU
+        erp_w, erp_h, long_side = CAMERA
+        on_card = PerspectiveCamera(erp_w, erp_h, long_side=long_side)
+        on_cpu = PerspectiveCamera(erp_w, erp_h, long_side=long_side,
+                                   device="cpu")
+        camera, level_gap = {"card_ms": [], "cpu_ms": []}, 0
+        for view in CAMERA_VIEWS:
+            a, card_s = _timed(lambda: on_card.extract(panorama, *view))
+            b, cpu_s = _timed(lambda: on_cpu.extract(panorama, *view))
+            if a.shape != (on_card.img_h, on_card.img_w, 3) \
+                    or a.dtype != np.uint8:
+                raise AssertionError(f"a view {a.shape} {a.dtype}")
+            level_gap = max(level_gap, int(np.abs(a.astype(np.int16)
+                                                  - b).max()))
+            camera["card_ms"].append(card_s * 1e3)
+            camera["cpu_ms"].append(cpu_s * 1e3)
+        if level_gap > 1:
+            raise AssertionError(f"the card's views are {level_gap} levels "
+                                 "from the CPU's")
+        resident = torch.from_numpy(panorama).to(on_card.device)
+        camera.update({
+            "view": [on_card.img_h, on_card.img_w], "max_level_gap":
+            level_gap, "resident_card_ms": median_ms(
+                lambda: on_card.extract(resident, *CAMERA_VIEWS[0]), reps)})
+        del resident
+
+        # (c) the anchor optimiser
+        anchors = {}
+        for dev in ("cuda", "cpu"):
+            out_dir = os.path.join(tmp, f"anchors_{dev}")
+            said, t = _timed(lambda: _said(lambda: anchors_cli.main([
+                CONFIG, "--synthetic", "--algorithm", "k-means",
+                "--device", dev, "--output-dir", out_dir])))
+            with open(os.path.join(out_dir,
+                                   "anchor_optimize_result.json")) as f:
+                found = json.load(f)
+            anchors[dev] = {"seconds": t, "gt_boxes": int(said.split()[0]),
+                            "before": _score(said, "config anchors"),
+                            "after": found["avg_best_iou"],
+                            "fovs": np.asarray(
+                                found["anchors_alpha_beta_deg"])}
+        anchor_gap = float(np.abs(anchors["cuda"].pop("fovs")
+                                  - anchors["cpu"].pop("fovs")).max())
+        if not anchor_gap <= ANCHOR_TOLERANCE:
+            raise AssertionError(f"k-means: the card's anchors are "
+                                 f"{anchor_gap} degrees from the CPU's")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        said, seconds["differential_evolution"] = _timed(lambda: _said(
+            lambda: anchors_cli.main([CONFIG, "--synthetic"])))
+        de = {"seconds": seconds["differential_evolution"],
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "before": _score(said, "config anchors"),
+              "after": _score(said, "optimized anchors"),
+              "k": int(said.split("K=")[2].split()[0])}
+        if de["after"] < de["before"]:
+            raise AssertionError(f"differential evolution: {de}")
+
+        # (d) the other tools
+        kent_png = os.path.join(tmp, "kent.png")
+        said, seconds["vis_kent"] = _timed(lambda: _said(
+            lambda: kent_cli.main(["--bfov", "120", "60", "40", "30",
+                                   "--mle", "--samples", "500", "--image",
+                                   png, "--out", kent_png])))
+        rng = np.random.default_rng(seed)
+        pairs = [torch.from_numpy(seeded_boxes(SCATTER_PAIRS, 4, rng)).cuda()
+                 for _ in range(2)]
+        iou = {b: sph_overlaps(*pairs, b, is_aligned=True)
+               for b in ("sph2pob_efficient", "unbiased")}
+        scatter_png = os.path.join(tmp, "scatter.png")
+        r, seconds["plot_iou_scatter"] = _timed(lambda: plot_iou_scatter(
+            iou["sph2pob_efficient"], iou["unbiased"], "sph2pob_efficient",
+            "unbiased", out_file=scatter_png))
+        curve_png = os.path.join(tmp, "curve.png")
+        order = torch.argsort(iou["unbiased"]).cpu()
+        _, seconds["plot_curve"] = _timed(lambda: plot_curve(
+            np.arange(SCATTER_PAIRS), {b: v.cpu()[order]
+                                       for b, v in iou.items()},
+            "pair, by the oracle's IoU", "IoU", out_file=curve_png))
+        log = os.path.join(work, "metrics.jsonl")
+        logs_png = os.path.join(tmp, "logs.png")
+        said_logs, seconds["analyze_logs"] = _timed(lambda: _said(
+            lambda: logs_cli.main(["plot_curve", log, "--keys", "loss",
+                                   "loss_cls", "loss_bbox", "--out",
+                                   logs_png])) + _said(
+            lambda: logs_cli.main(["cal_train_time", log])))
+        # the GIF pages through the demo's PNG, the panorama undrawn and
+        # show_result's PNG (two equal frames in a row would merge into one)
+        Image.fromarray(apis._prepare(
+            init_detector(CONFIG, ckpts), panorama)).save(
+            os.path.join(demo_dir, "resized.png"))
+        gif = os.path.join(tmp, "demo.gif")
+        said_gif, seconds["create_result_gif"] = _timed(lambda: _said(
+            lambda: gif_cli.main([demo_dir, "--out", gif])))
+        browse_cfg = os.path.join(tmp, "browse_cfg.py")
+        with open(browse_cfg, "w") as f:
+            f.write(f"_base_ = [{CONFIG!r}]\ndata = dict(train=dict("
+                    f"ann_file={ann!r}, img_prefix={img_dir!r}))\n")
+        browsed = {}
+        for name, extra in (("pipeline", []), ("raw", ["--no-pipeline"])):
+            out_dir = os.path.join(tmp, f"browse_{name}")
+            _, seconds[f"browse_dataset_{name}"] = _timed(lambda: _said(
+                lambda: browse_cli.main([browse_cfg, "--out-dir", out_dir,
+                                         *extra])))
+            browsed[name] = sorted(os.listdir(out_dir))
+            for f in browsed[name]:
+                files[f"browse_{name}/{f}"] = os.path.getsize(
+                    os.path.join(out_dir, f))
+        for path in (demo_png, kent_png, scatter_png, curve_png, logs_png,
+                     gif):
+            files[os.path.basename(path)] = os.path.getsize(path) \
+                if os.path.exists(path) else 0
+        with Image.open(gif) as im:
+            gif_frames = im.n_frames
+        if not all(files.values()) or gif_frames != 3 \
+                or not said_logs.startswith(f"saved {logs_png}") \
+                or "epochs: 1" not in said_logs \
+                or any(len(v) != VIS_PANORAMAS for v in browsed.values()):
+            raise AssertionError(f"files {files}, {gif_frames} GIF frames, "
+                                 f"analyze_logs said {said_logs!r}")
+    leaked = [m for m in ("matplotlib", "imageio") if m in sys.modules]
+    if leaked:
+        raise AssertionError(f"imported: {leaked}")
+    launches = train_launches + demo_launches + api_launches
+    emit({"phase": "visualize", "config": os.path.relpath(CONFIG, ROOT),
+          "input_size": list(INPUT_SIZE), "demo": demo, "camera": camera,
+          "anchors_kmeans": anchors, "anchors_kmeans_gap_deg": anchor_gap,
+          "anchors_differential_evolution": de, "iou_scatter_r": float(r),
+          "files_bytes": files, "gif_frames": gif_frames,
+          "matplotlib_or_imageio_imported": leaked,
+          "kernel_launches": {"train": train_launches,
+                              "image_demo": demo_launches,
+                              "show_result_predict": api_launches,
                               "whole_phase": launches},
           "kernel_on_nms_input": on_input, "seconds": seconds,
           "phase_seconds": time.perf_counter() - t_phase})
@@ -4500,12 +4793,15 @@ def main(argv=None) -> int:
     launches["sph2pob_iou_pairwise"] += trained
     trained, on_robust_input = phase_robustness(args.seed, args.reps)
     launches["sph2pob_iou_pairwise"] += trained
+    trained, on_demo_input = phase_visualize(args.seed, args.reps)
+    launches["sph2pob_iou_pairwise"] += trained
     # K1 on the inputs its paths gave it, beside its seeded shapes
     shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input,
                                        on_iou_input, on_ssd_input,
                                        *on_frcnn_input, on_val_nms_input,
                                        on_input_assign, on_pretrained_assign,
-                                       *on_parallel_inputs, on_robust_input]
+                                       *on_parallel_inputs, on_robust_input,
+                                       on_demo_input]
     idle = [k.name for k in KERNELS if launches[k.name] < 1]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

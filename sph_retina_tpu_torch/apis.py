@@ -2,6 +2,7 @@
 
 - ``init_detector``      builds a detector from a config and a checkpoint
 - ``inference_detector`` runs it on one image or a list of images
+- ``show_result``        draws a result on its image
 
 Results come per image as a list of ``num_classes`` numpy arrays of shape
 (n_i, box_version + 1) (boxes in spherical degrees + score) — the format the
@@ -29,8 +30,9 @@ from .models.from_flax import load_flax_variables
 from .utils.config import apply_overrides, load_config
 from .utils.device import resolve_device
 from .utils.publish import load_published
+from .visualize import draw_boxes
 
-__all__ = ["Detector", "init_detector", "inference_detector"]
+__all__ = ["Detector", "init_detector", "inference_detector", "show_result"]
 
 
 @dataclass
@@ -133,3 +135,31 @@ def inference_detector(det: Detector, imgs):
                                axis=1))
         results.append(per_class)
     return results if is_batch else results[0]
+
+
+def show_result(det: Detector, img, result, score_thr: float = 0.3,
+                out_file: str | None = None) -> np.ndarray:
+    """Draw a result (the per-class list of :func:`inference_detector`) on
+    the resized image; returns the rendered uint8 array and writes it to
+    ``out_file`` where given."""
+    raw = _prepare(det, img)
+    boxes, labels, scores = [], [], []
+    for c, dets in enumerate(result):
+        for row in dets:
+            boxes.append(row[:-1])
+            scores.append(row[-1])
+            labels.append(c)
+    if boxes:
+        boxes = np.stack(boxes)
+        labels = np.asarray(labels)
+        scores = np.asarray(scores)
+    else:
+        boxes = np.zeros((0, det.box_version), np.float32)
+        labels = np.zeros((0,), np.int64)
+        scores = np.zeros((0,), np.float32)
+    out = draw_boxes(raw, boxes, labels, scores, score_thr=score_thr)
+    if out_file:
+        from PIL import Image
+
+        Image.fromarray(out).save(out_file)
+    return out

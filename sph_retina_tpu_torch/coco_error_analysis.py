@@ -29,6 +29,7 @@ from .engine.error_analysis import (
 )
 from .utils.config import load_config
 from .utils.device import resolve_device
+from .visualize.canvas import BLACK, Axes
 
 # the reference's colour ramp, one a band
 COLORS = [(0.31, 0.51, 0.74), (0.75, 0.31, 0.30), (0.36, 0.90, 0.38),
@@ -36,28 +37,19 @@ COLORS = [(0.31, 0.51, 0.74), (0.75, 0.31, 0.30), (0.36, 0.90, 0.38),
 
 
 def make_plot(ps_cls, ap_cls, title, out_file):
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    fig, ax = plt.subplots(figsize=(6, 5))
+    """The error types' precision curves as stacked bands over recall, each
+    labelled with its AP, the curves drawn over the bands."""
+    ax = Axes(600, 480, (0.0, 1.0), (0.0, 1.0), title=title,
+              xlabel="recall", ylabel="precision")
     prev = np.zeros_like(RECALL_LEVELS)
     for k, name in enumerate(ERROR_TYPES):
-        cur = ps_cls[k]
-        ax.plot(RECALL_LEVELS, cur, color="k", linewidth=0.5)
-        ax.fill_between(RECALL_LEVELS, prev, cur, color=COLORS[k],
+        ax.fill_between(RECALL_LEVELS, prev, ps_cls[k], COLORS[k],
                         label=f"[{ap_cls[k]:.3f}] {name}")
-        prev = cur
-    ax.set_xlabel("recall")
-    ax.set_ylabel("precision")
-    ax.set_xlim(0, 1)
-    ax.set_ylim(0, 1)
-    ax.set_title(title)
-    ax.legend(loc="lower left", fontsize=8)
-    fig.tight_layout()
-    fig.savefig(out_file, dpi=150)
-    plt.close(fig)
+        prev = ps_cls[k]
+    for k in range(len(ERROR_TYPES)):
+        ax.line(RECALL_LEVELS, ps_cls[k], BLACK)
+    ax.legend("lower left")
+    ax.save(out_file)
 
 
 def decompose(arrays: dict, num_classes: int, backend: str, max_dets: int,

@@ -23,41 +23,35 @@ import numpy as np
 from .engine.analysis import confusion_matrix, load_raw_results
 from .utils.config import load_config
 from .utils.device import resolve_device
+from .visualize.canvas import WHITE, Axes
 
 
 def plot_confusion_matrix(cm, class_names, out_file, normalize=True,
                           title="Normalized Confusion Matrix"):
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    """The ``Blues`` heat map of the matrix (rows normalised to percent
+    where ``normalize``), one square cell a class pair, each non-zero cell
+    with its value, and a colorbar."""
     mat = cm.astype(np.float64)
     if normalize:
         row = mat.sum(axis=1, keepdims=True)
         mat = mat / np.maximum(row, 1) * 100.0
     n = len(class_names)
-    fig, ax = plt.subplots(figsize=(0.5 * n + 4, 0.5 * n + 3))
-    im = ax.imshow(mat, cmap=plt.get_cmap("Blues"))
-    fig.colorbar(im, ax=ax)
-    ax.set_xticks(range(n))
-    ax.set_yticks(range(n))
-    ax.set_xticklabels(class_names, rotation=45, ha="right", fontsize=8)
-    ax.set_yticklabels(class_names, fontsize=8)
-    ax.set_xlabel("Prediction")
-    ax.set_ylabel("Ground truth")
-    ax.set_title(title)
-    thresh = mat.max() / 2 if mat.size else 0
+    cell = max(12, min(40, 960 // max(n, 1)))
+    vmax = mat.max() if mat.size else 0.0
+    ax = Axes(cell * n, cell * n, (-0.5, n - 0.5), (n - 0.5, -0.5),
+              title=title, xlabel="Prediction", ylabel="Ground truth")
+    ax.image(mat, cmap="Blues", vmin=0.0, vmax=vmax)
+    ax.colorbar("Blues", 0.0, vmax)
+    ax.set_xticks(range(n), class_names, rotation=90)
+    ax.set_yticks(range(n), class_names)
+    thresh = vmax / 2
     for i in range(n):
         for j in range(n):
             val = mat[i, j]
             if val > 0:
-                ax.text(j, i, f"{val:.0f}", ha="center", va="center",
-                        fontsize=7,
-                        color="white" if val > thresh else "black")
-    fig.tight_layout()
-    fig.savefig(out_file, dpi=150)
-    plt.close(fig)
+                ax.text(j, i, f"{val:.0f}",
+                        color=WHITE if val > thresh else (0, 0, 0))
+    ax.save(out_file)
 
 
 def parse_args(argv=None):

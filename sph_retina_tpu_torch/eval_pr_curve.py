@@ -8,9 +8,8 @@ images) with the checkpoint, as ``test.py`` does, through the family's
 predict (its NMS on the CUDA device unless ``--device cpu`` is given), then
 matches the detections of each class to its ground truth greedily in score
 order over all images at ``--iou-thr`` (spherical IoU on the same device)
-and plots each class's curve with its COCO 101-point AP. The plot needs
-matplotlib; without it the curves are still computed and their APs
-printed, and the tool says in one line that it did not plot.
+and plots each class's curve with its COCO 101-point AP
+(``visualize/canvas.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ from .engine.zoo import get_family
 from .test import eval_loader, load_for_eval
 from .utils.config import apply_overrides, load_config
 from .utils.device import resolve_device
+from .visualize.canvas import CYCLE, Axes
 
 
 def pr_curves(dets, anns, num_classes: int, iou_thr: float = 0.5,
@@ -71,21 +71,13 @@ def pr_curves(dets, anns, num_classes: int, iou_thr: float = 0.5,
 
 
 def plot_pr_curves(curves: dict, out_file: str) -> None:
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    fig, ax = plt.subplots(figsize=(6, 5))
-    for c, (recall, precision, ap) in curves.items():
-        ax.plot(recall, precision, label=f"class {c} (AP={ap:.3f})")
-    ax.set_xlabel("recall")
-    ax.set_ylabel("precision")
-    ax.set_xlim(0, 1)
-    ax.set_ylim(0, 1.05)
-    ax.legend(fontsize=7)
-    fig.savefig(out_file, dpi=120, bbox_inches="tight")
-    plt.close(fig)
+    ax = Axes(600, 480, (0.0, 1.0), (0.0, 1.05), xlabel="recall",
+              ylabel="precision")
+    for i, (c, (recall, precision, ap)) in enumerate(curves.items()):
+        ax.line(recall, precision, CYCLE[i % len(CYCLE)], width=2,
+                label=f"class {c} (AP={ap:.3f})")
+    ax.legend("upper right")
+    ax.save(out_file)
 
 
 def parse_args(argv=None):
@@ -121,12 +113,6 @@ def main(argv=None) -> int:
                        args.iou_thr, args.iou_backend, device)
     for c, (_, _, ap) in curves.items():
         print(f"class {c}: AP={ap:.4f}")
-    try:
-        import matplotlib  # noqa: F401
-    except ImportError:
-        print(f"matplotlib is not installed: {len(curves)} curves computed, "
-              f"{args.out} not plotted")
-        return 0
     plot_pr_curves(curves, args.out)
     print(f"saved {args.out}")
     return 0

@@ -103,6 +103,24 @@ def spherical_box_area(alpha: torch.Tensor,
     return 4.0 * torch.arccos(s.clamp(-1.0 + EPS, 1.0 - EPS)) - 2.0 * math.pi
 
 
+def is_valid_boxes(boxes: torch.Tensor, need_flag: bool = False):
+    """Validity predicate for degree-space boxes, with inclusive bounds
+    (theta <= 360, phi <= 180, alpha <= 360, beta <= 180, and gamma in
+    [-180, 180] at D=5): the decoder's clamps land exactly on them.
+    ``need_flag``: the per-box flags, else whether every box is valid."""
+    theta, phi, alpha, beta = (boxes[..., i] for i in range(4))
+    flag = ((theta >= 0.0) & (theta <= 360.0)
+            & (phi >= 0.0) & (phi <= 180.0)
+            & (alpha >= 0.0) & (alpha <= 360.0)
+            & (beta >= 0.0) & (beta <= 180.0))
+    if boxes.shape[-1] == 5:
+        gamma = boxes[..., 4]
+        flag = flag & (gamma >= -180.0) & (gamma <= 180.0)
+    if need_flag:
+        return flag
+    return flag.all()
+
+
 def generate_boxes(
     n: int,
     box_version: int = 4,

@@ -231,8 +231,9 @@ def test_drawing_equals_the_jax_packages():
     np.testing.assert_array_equal(  # a 5-dof box's angle is not a score
         imshow_det_bboxes(image, boxes5, labels, score_thr=0.5),
         jdraw.imshow_det_bboxes(image, boxes5, labels, score_thr=0.5))
-    assert set(tvisualize.__all__) == {"draw_boxes", "erp_box_polyline",
-                                       "imshow_det_bboxes"}
+    from sph_retina_tpu import visualize as jvisualize
+
+    assert set(tvisualize.__all__) == set(jvisualize.__all__)
 
 
 # ------------------------------------ test.py --save-raw and the tool twins
@@ -320,11 +321,14 @@ def _files(root):
                   for d, _, fs in os.walk(root) for f in fs)
 
 
-def test_confusion_matrix_tool_equals_the_jax_tools(evaluated):
+def test_confusion_matrix_tool_equals_the_jax_tools(evaluated, monkeypatch):
+    """The port's figure is written with matplotlib unimportable."""
     tmp, cfg, raw = evaluated["tmp"], evaluated["cfg"], evaluated["raw"]
     mine, theirs = str(tmp / "cm_port"), str(tmp / "cm_jax")
-    said = _quiet(lambda: confusion_cli.main([cfg, raw, mine, "--device",
-                                              "cpu"]))
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "matplotlib", None)
+        said = _quiet(lambda: confusion_cli.main([cfg, raw, mine, "--device",
+                                                  "cpu"]))
     _jax_tool("confusion_matrix", [cfg, raw, theirs, "--device", "cpu"])
     assert "matched GT:" in said
     assert _files(mine) == _files(theirs) == ["confusion_matrix.npy",
@@ -336,14 +340,20 @@ def test_confusion_matrix_tool_equals_the_jax_tools(evaluated):
     assert os.path.getsize(os.path.join(mine, "confusion_matrix.png")) > 0
 
 
-def test_coco_error_analysis_tool_equals_the_jax_tools(evaluated):
+def test_coco_error_analysis_tool_equals_the_jax_tools(evaluated,
+                                                      monkeypatch):
+    """The port's figures are written with matplotlib unimportable."""
     tmp, cfg, raw = evaluated["tmp"], evaluated["cfg"], evaluated["raw"]
     mine, theirs = str(tmp / "err_port"), str(tmp / "err_jax")
-    _quiet(lambda: error_cli.main([cfg, raw, mine, "--device", "cpu"]))
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "matplotlib", None)
+        _quiet(lambda: error_cli.main([cfg, raw, mine, "--device", "cpu"]))
     _jax_tool("coco_error_analysis", [cfg, raw, theirs, "--device", "cpu"])
     files = _files(mine)
     assert files == _files(theirs)
     assert "bbox-allclass-allarea.png" in files and len(files) >= 3
+    for name in files:
+        assert os.path.getsize(os.path.join(mine, name)) > 0, name
     with open(os.path.join(mine, "error_analysis.json")) as f:
         got = json.load(f)
     with open(os.path.join(theirs, "error_analysis.json")) as f:

@@ -33,7 +33,8 @@ from sph_retina_tpu_torch.utils.publish import load_published
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "chex",
              "sph_retina_tpu", "triton",  # both kernels are CUDA C++
-             "cv2"}  # the card's host has no OpenCV: data/imgproc.py
+             "cv2",  # the card's host has no OpenCV: data/imgproc.py
+             "matplotlib", "imageio"}  # nor these: visualize/canvas.py
 
 
 def _port_sources():
@@ -59,13 +60,17 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     """Every import statement of every module of the port and of
     ``chip_smoke.py``, wherever in the file it stands (function bodies
     included), names neither JAX nor anything of ``sph_retina_tpu``, nor
-    OpenCV."""
+    OpenCV, matplotlib or imageio."""
     files = _port_sources()
     assert len(files) > 35
     names = {os.path.relpath(f, REPO) for f in files}
     assert {f"sph_retina_tpu_torch/{m}.py" for m in (
         "data/imgproc", "data/corruptions", "test_robustness",
-        "robustness_eval", "eval_metric", "eval_pr_curve")} <= names
+        "robustness_eval", "eval_metric", "eval_pr_curve",
+        "boxes/anchor_opt", "visualize/canvas", "visualize/plots",
+        "visualize/camera", "visualize/kent_vis", "optimize_anchors",
+        "image_demo", "browse_dataset", "vis_kent", "create_result_gif",
+        "analyze_logs")} <= names
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{os.path.relpath(path, REPO)} imports {sorted(bad)}"
@@ -91,9 +96,8 @@ def test_every_module_of_the_port_imports():
 NOT_PORTED = {
     "data": set(),
     "iou": set(),
-    "boxes": {"bfov2rbfov", "geo2sph", "sph2geo", "pix2sph_box_transform",
-              "sph2tan_box_transform", "tan2sph_box_transform",
-              "planar2sph_boxes"},
+    "boxes": set(),
+    "geometry": set(),
     "models": set(),
     "engine": {"TrainState", "create_train_state", "shard_batch"},
     # data_mesh, make_global_batch: no counterpart (each rank keeps its
@@ -104,9 +108,7 @@ NOT_PORTED = {
     "parallel": {"data_mesh", "make_global_batch", "replicate_to_mesh",
                  "make_mesh", "batch_specs", "fsdp_spec", "shard_state_fsdp",
                  "sharded_pairwise_overlaps", "shard_batch_spatial"},
-    "visualize": {"plot_curve", "plot_iou_scatter", "PerspectiveCamera",
-                  "kent_density_erp", "sample_kent", "plot_kent_density",
-                  "erp_grid_directions", "directions_to_erp_deg"},
+    "visualize": set(),
 }
 
 

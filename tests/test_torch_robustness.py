@@ -12,7 +12,7 @@ against the JAX package's, on the CPU.
 - ``robustness_eval.get_results``, ``eval_metric.main`` (COCO-style and
   ``--voc``) and ``eval_pr_curve.pr_curves``: equal to the JAX tools' (run
   in this process) on the same files, the JAX matcher given the port's
-  IoUs; ``eval_pr_curve`` without matplotlib.
+  IoUs; ``eval_pr_curve``'s figure written with matplotlib unimportable.
 - Without a card and without ``--device cpu`` each CLI raises.
 
 Every file written is removed once asserted on (C12).
@@ -362,16 +362,23 @@ def test_pr_curves_equal_the_jax_tools(evaluated, jittered, iou_thr,
 
 
 def test_pr_curve_tool_with_and_without_matplotlib(evaluated, monkeypatch):
+    """The figure is drawn by ``visualize/canvas.py``: written whether or
+    not matplotlib can be imported, the same file both times."""
     out = str(evaluated["tmp"] / "pr.png")
     argv = [evaluated["cfg"], evaluated["ckpts"], "--synthetic", "--device",
             "cpu", "--out", out]
     with monkeypatch.context() as m:
         m.setitem(sys.modules, "matplotlib", None)
         said = _quiet(lambda: pr_cli.main(argv))
-    assert f"{out} not plotted" in said and not os.path.exists(out)
-    assert said.count("AP=") == len(said.splitlines()) - 1 >= 1
-    said = _quiet(lambda: pr_cli.main(argv))
     assert f"saved {out}" in said and os.path.getsize(out) > 0
+    assert said.count("AP=") == len(said.splitlines()) - 1 >= 1
+    with open(out, "rb") as f:
+        first = f.read()
+    os.remove(out)
+    said = _quiet(lambda: pr_cli.main(argv))
+    assert f"saved {out}" in said
+    with open(out, "rb") as f:
+        assert f.read() == first
 
 
 def test_the_tools_need_a_card_unless_told_cpu(evaluated):
