@@ -31,8 +31,10 @@ corruption-robustness benchmark and the offline scoring tools
 and anchor optimisation (``image_demo``, ``show_result``, the perspective
 camera, ``optimize_anchors``, ``vis_kent``, the plots, ``analyze_logs``,
 ``create_result_gif``, ``browse_dataset``, every figure without
-matplotlib); and the IoU tool (``benchmark_iou.main``, the kernel and the
-other backends) — and holds
+matplotlib); the measurement tools (``print_config``, ``get_flops``,
+``benchmark_fps``, ``profile_step`` with the backbone's ``remat`` off and
+on, ``mfu_experiment``, ``bench_host_pipeline``); and the IoU tool
+(``benchmark_iou.main``, the kernel and the other backends) — and holds
 every CUDA kernel of those paths against its plain PyTorch version on the
 card.
 
@@ -169,7 +171,23 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             and curve plots, ``analyze_logs``, ``create_result_gif``,
             ``browse_dataset``: every file written, neither matplotlib nor
             imageio imported
-21. the kernels' summary line, then the last line
+21. measure  the measurement tools on the rotated config at full width,
+            each through its ``main(argv)``: ``print_config`` (its text's
+            sha256); ``get_flops`` at 512x1024 (37,304,852 parameters,
+            0.21-0.23 TFLOP, the count on the card equal to the meta
+            device's and, at 128x256, to the CPU's); ``benchmark_fps`` at
+            batch 1 and 8, with and without ``--with-nms`` (images a second;
+            K1 once an image a call, bitwise at the last NMS input);
+            ``profile_step`` at batch 4: the trace (bytes, kernel events,
+            K1's), ``--breakdown``, ``--memory`` (``remat`` lowers the peak,
+            the step's loss the same within 1e-3); K1 bitwise at its
+            assignment input (64, 98208) D=5; ``mfu_experiment
+            --experiments baseline`` in its own child process (step ms,
+            images a second, 0 < mfu <= 1.05, the card's name and power
+            limit; K1 bitwise at the child's assignment input (128, 98208)
+            D=4); ``bench_host_pipeline`` at 512x1024, 16 images, workers
+            1 2 4, the link probe
+22. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
 Weights are random, made from ``--seed``; no number printed here says
@@ -184,6 +202,7 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -208,6 +227,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from sph_retina_tpu_torch import analyze_logs as logs_cli
 from sph_retina_tpu_torch import analyze_results as analyze_cli
 from sph_retina_tpu_torch import apis
+from sph_retina_tpu_torch import bench_host_pipeline as host_cli
+from sph_retina_tpu_torch import benchmark_fps as fps_cli
 from sph_retina_tpu_torch import benchmark_iou
 from sph_retina_tpu_torch import browse_dataset as browse_cli
 from sph_retina_tpu_torch import coco_error_analysis as error_cli
@@ -218,9 +239,13 @@ from sph_retina_tpu_torch import deployment_test as deployment_cli
 from sph_retina_tpu_torch import eval_metric as metric_cli
 from sph_retina_tpu_torch import eval_pr_curve as pr_cli
 from sph_retina_tpu_torch import export as export_cli
+from sph_retina_tpu_torch import get_flops as flops_cli
 from sph_retina_tpu_torch import image_demo as demo_cli
+from sph_retina_tpu_torch import mfu_experiment as mfu_cli
 from sph_retina_tpu_torch import occluded_recall as recall_cli
 from sph_retina_tpu_torch import optimize_anchors as anchors_cli
+from sph_retina_tpu_torch import print_config as config_cli
+from sph_retina_tpu_torch import profile_step as profile_cli
 from sph_retina_tpu_torch import publish as publish_cli
 from sph_retina_tpu_torch import robustness_eval as summary_cli
 from sph_retina_tpu_torch import test as test_cli
@@ -444,6 +469,10 @@ FRCNN_R18_ROI_SHAPE = (24, 536, 4)
 FRCNN_LEAF = (50, 37, (512, 1024))         # depth, classes, img_size
 FRCNN_R18_LEAF = (18, 12, (256, 512))
 TOOL_SHAPE = (1_000_000, 4)           # the IoU tool's default
+# the measurement tools' assignments: profile_step's batch 4 x 16 GT on the
+# rotated config, mfu_experiment's batch 8 x 16 GT on the base config
+PROFILE_ASSIGN_SHAPE = (64, 98208, 5)
+MFU_ASSIGN_SHAPE = (128, 98208, 4)
 KERNELS = (
     Kernel(
         name="sph2pob_iou_pairwise", library="sph2pob_iou",
@@ -4738,6 +4767,266 @@ def phase_visualize(seed: int, reps: int) -> tuple[int, dict]:
     return launches, on_input
 
 
+MEASURE_FPS_WARMUP = 5
+MEASURE_FPS_ITERS = 20
+MEASURE_FPS_BATCHES = (1, 8)
+MEASURE_BATCH = 4             # profile_step's default batch
+MEASURE_TRACE_STEPS = 2
+BREAKDOWN_ITERS = 15          # profile_step.report_breakdown's loop length
+PARAMS_R50_ROTATED = 37_304_852
+FLOPS_RANGE = (0.21e12, 0.23e12)  # 512x1024: ~16x the 128x256 count
+FLOPS_SMALL_SHAPE = (128, 256)    # card vs CPU, where the CPU is quick
+REMAT_LOSS_TOLERANCE = 1e-3   # relative: the same forward kernels either way
+MFU_TIMEOUT_S = 600
+HOST_ARGS = ["--img-size", "512", "1024", "--n-images", "16",
+             "--workers", "1", "2", "4", "--probe-link"]
+
+
+def _kernel_events(trace_path: str) -> dict:
+    """CUDA kernel events of a Chrome trace, in all and K1's."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {"kernel_events": len(kernels),
+            "k1_events": sum(KERNELS[0].device_name in e.get("name", "")
+                             for e in kernels)}
+
+
+def _counted(fn, calls: list) -> tuple[str, int]:
+    """``fn``'s output and the pairwise kernel's launches during it, the
+    kernel's calls recorded in ``calls`` (the last call's inputs kept)."""
+    real = (single_stage.sph2pob_iou_pairwise,
+            nms_module.sph2pob_iou_pairwise)
+    single_stage.sph2pob_iou_pairwise = nms_module.sph2pob_iou_pairwise = \
+        _recording(sph2pob_iou_pairwise, calls, keep_last=True)
+    try:
+        sph2pob_iou_pairwise.launches = 0
+        said = _said(fn)
+        torch.cuda.synchronize()
+        return said, sph2pob_iou_pairwise.launches
+    finally:
+        single_stage.sph2pob_iou_pairwise, \
+            nms_module.sph2pob_iou_pairwise = real
+
+
+def _on_input(calls: list, what: str, shape, reps: int) -> dict:
+    """K1 against its plain version on the last recorded input, which must
+    have ``shape`` (None: any)."""
+    (shapes, b1, b2), = calls
+    got = [shapes[0][0], shapes[1][0], shapes[0][1]]
+    if shape is not None and got != list(shape):
+        raise AssertionError(f"{what}: K1 at {got}, expected {list(shape)}")
+    res = {"input": what, **check_kernel(KERNELS[0], b1, b2, reps,
+                                         identical=False)}
+    if not res["bitwise_equal"]:
+        raise AssertionError(f"{what}: K1 differs from its plain version "
+                             f"by {res['max_abs_err']}")
+    return res
+
+
+def phase_measure(seed: int, reps: int) -> tuple[int, list]:
+    """The measurement tools on the rotated config at full width (or the
+    config a tool fixes), each through its ``main(argv)`` in this process
+    but ``mfu_experiment``'s child: ``print_config`` (the text's sha256);
+    ``get_flops`` at 512x1024 (the parameters, the FLOPs in range, the
+    count on the card equal to the count on the meta device and, at
+    128x256, on the CPU); ``benchmark_fps`` at batch 1 and 8 with and
+    without ``--with-nms`` (images a second, K1 once an image a call,
+    bitwise at the last NMS input); ``profile_step`` at batch 4: the trace
+    (bytes, kernel events, K1's), ``--breakdown``, ``--memory`` (remat
+    lowers the peak; the step's loss the same within
+    ``REMAT_LOSS_TOLERANCE``), K1 bitwise at the assignment input (64,
+    98208) D=5; ``mfu_experiment --experiments baseline`` (step ms, images
+    a second, 0 < mfu <= 1.05, the card's name and power limit; K1 bitwise
+    at the child's assignment input (128, 98208) D=4, which it saves);
+    ``bench_host_pipeline`` at 512x1024, 16 images, workers 1 2 4 with the
+    link probe. cuDNN runs in its default, non-deterministic mode, as a
+    user's. Returns K1's launches in this process and its checks."""
+    t_phase = time.perf_counter()
+    device = resolve_device()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    seconds, launches, on_inputs = {}, {}, []
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(
+                dir=os.path.join(ROOT, "build")) as tmp:
+            # print_config
+            text, seconds["print_config"] = _timed(
+                lambda: _said(lambda: config_cli.main([CONFIG])))
+            printed = {"sha256": hashlib.sha256(text.encode()).hexdigest(),
+                       "lines": len(text.splitlines())}
+            if "'num_classes': 47" not in text:
+                raise AssertionError(f"print_config said {text[:200]!r}")
+
+            # get_flops
+            said, seconds["get_flops"] = _timed(
+                lambda: _said(lambda: flops_cli.main([CONFIG])))
+            params = int(said.split("params:")[1].split("(")[1].split(")")[0])
+            cfg = load_config(CONFIG)
+            h, w = cfg["img_size"]
+
+            def count_on(where, shape):
+                c = dict(cfg, img_size=shape)
+                with torch.device(where):
+                    model, _ = get_family(c).build(c)
+                with torch.no_grad():
+                    return flops_cli.count_flops(
+                        model.eval(), torch.zeros((1, *shape, 3),
+                                                  device=where))
+
+            # the FLOPs depend on shapes only; the bytes on layouts too
+            card, meta = count_on(device, (h, w)), count_on("meta", (h, w))
+            small = {d: count_on(d, FLOPS_SMALL_SHAPE)
+                     for d in (device, "cpu")}
+            flops = {"params": params, "flops": card.total,
+                     "flops_by_class": dict(card.flops), "bytes": card.bytes,
+                     "printed": said.splitlines()[3:5],
+                     "equal_on_meta": card.flops == meta.flops,
+                     f"flops_{FLOPS_SMALL_SHAPE[0]}x{FLOPS_SMALL_SHAPE[1]}":
+                     small[device].total,
+                     "small_equal_on_cpu": (small[device].flops,
+                                            small[device].bytes)
+                     == (small["cpu"].flops, small["cpu"].bytes)}
+            if params != PARAMS_R50_ROTATED or not flops["equal_on_meta"] \
+                    or not flops["small_equal_on_cpu"] \
+                    or not FLOPS_RANGE[0] <= card.total <= FLOPS_RANGE[1]:
+                raise AssertionError(f"get_flops: {flops}")
+
+            # benchmark_fps
+            fps = []
+            for b in MEASURE_FPS_BATCHES:
+                for nms in (False, True):
+                    calls = []
+                    argv = [CONFIG, "--batch-size", str(b), "--warmup",
+                            str(MEASURE_FPS_WARMUP), "--max-iter",
+                            str(MEASURE_FPS_ITERS)] + (["--with-nms"]
+                                                       if nms else [])
+                    (said, n), s = _timed(lambda: _counted(
+                        lambda: fps_cli.main(argv), calls))
+                    rec = json.loads(said.splitlines()[-1])
+                    want = b * (MEASURE_FPS_WARMUP + MEASURE_FPS_ITERS) \
+                        if nms else 0
+                    if n != want or rec["device"] != \
+                            torch.cuda.get_device_name(0):
+                        raise AssertionError(
+                            f"benchmark_fps {argv}: {n} K1 launches "
+                            f"(expected {want}): {rec}")
+                    fps.append({**rec, "k1_launches": n, "seconds": s})
+                    launches[f"benchmark_fps_b{b}_nms{int(nms)}"] = n
+            on_inputs.append(_on_input(
+                calls, "measure: the last NMS input of benchmark_fps "
+                "--with-nms", None, reps))
+
+            # profile_step: the trace, the breakdown, the memory
+            base = [CONFIG, "--batch-size", str(MEASURE_BATCH)]
+            calls = []
+            logdir = os.path.join(tmp, "trace")
+            (said, n), seconds["profile_step_trace"] = _timed(
+                lambda: _counted(lambda: profile_cli.main(
+                    base + ["--steps", str(MEASURE_TRACE_STEPS), "--logdir",
+                            logdir]), calls))
+            path = os.path.join(logdir, "train_step.json")
+            trace = {"bytes": os.path.getsize(path), **_kernel_events(path),
+                     "k1_launches": n}
+            if n != 1 + MEASURE_TRACE_STEPS or trace["kernel_events"] < 1:
+                raise AssertionError(f"profile_step trace: {trace}")
+            launches["profile_step_trace"] = n
+            on_inputs.append(_on_input(
+                calls, "measure: the assignment input of profile_step",
+                PROFILE_ASSIGN_SHAPE, reps))
+
+            (said, n), seconds["profile_step_breakdown"] = _timed(
+                lambda: _counted(lambda: profile_cli.main(
+                    base + ["--breakdown"]), []))
+            rows = {line[2:46].rstrip(): float(line[46:].split("ms")[0])
+                    for line in said.splitlines()[1:]}
+            want = 2 * (1 + 2 * BREAKDOWN_ITERS)  # the loss and the step
+            if n != want or len(rows) != 6:
+                raise AssertionError(f"breakdown: {n} K1 launches "
+                                     f"(expected {want}): {said!r}")
+            launches["profile_step_breakdown"] = n
+            breakdown = {"rows_ms": rows, "header": said.splitlines()[0],
+                         "last_line": said.splitlines()[-1].strip()}
+
+            (said, n), seconds["profile_step_memory"] = _timed(
+                lambda: _counted(lambda: profile_cli.main(
+                    base + ["--memory"]), []))
+            mem = {}
+            for line in said.splitlines():
+                if line.startswith("remat="):
+                    key = line.split(":")[0]
+                    mem[key] = {
+                        k: float(line.split(f"{k}=")[1].split()[0])
+                        for k in ("temp", "args", "out")}
+                    mem[key]["loss"] = float(
+                        line.split("(loss ")[1].rstrip(")"))
+            mem["summary"] = said.splitlines()[-1]
+            off, on = mem["remat=False"], mem["remat=True"]
+            mem["loss_rel_gap"] = abs(on["loss"] - off["loss"]) \
+                / abs(off["loss"])
+            if n != 3 or not on["temp"] < off["temp"] \
+                    or not mem["loss_rel_gap"] <= REMAT_LOSS_TOLERANCE:
+                raise AssertionError(f"--memory: {n} K1 launches, {mem}")
+            launches["profile_step_memory"] = n
+
+            # mfu_experiment: its child is a process of its own
+            out_json = os.path.join(tmp, "mfu.json")
+            saved = os.path.join(tmp, "mfu_iou_input.pt")
+            said, seconds["mfu_experiment"] = _timed(lambda: _said(
+                lambda: mfu_cli.main([
+                    "--out", out_json, "--experiments", "baseline",
+                    "--timeout", str(MFU_TIMEOUT_S),
+                    "--save-iou-input", saved])))
+            with open(out_json) as f:
+                mfu = json.load(f)["baseline"]
+            if not 0.0 < mfu.get("mfu", -1.0) <= 1.05:
+                raise AssertionError(f"mfu_experiment: {mfu}")
+            b1, b2 = (t.to(device) for t in torch.load(saved))
+            on_inputs.append(_on_input(
+                [([list(b1.shape), list(b2.shape)], b1, b2)],
+                "measure: the assignment input of mfu_experiment's child",
+                MFU_ASSIGN_SHAPE, reps))
+            del b1, b2
+
+            # bench_host_pipeline, its JPEG cache under the phase's TMPDIR
+            out_json = os.path.join(tmp, "host.json")
+            saved_tmpdir = os.environ.get("TMPDIR")
+            os.environ["TMPDIR"] = tmp
+            try:
+                said, seconds["bench_host_pipeline"] = _timed(
+                    lambda: _said(lambda: host_cli.main(
+                        HOST_ARGS + ["--out", out_json])))
+            finally:
+                if saved_tmpdir is None:
+                    del os.environ["TMPDIR"]
+                else:
+                    os.environ["TMPDIR"] = saved_tmpdir
+            with open(out_json) as f:
+                host = json.load(f)
+            rates = host["loader_imgs_per_sec"]
+            if not all(v > 0 for cs in ("rgb", "yuv420")
+                       for v in rates[cs].values()) \
+                    or host["stages_single_thread"]["pil_decode_ms"] <= 0:
+                raise AssertionError(f"bench_host_pipeline: {host}")
+            host["native_decoder"] = {
+                k: v for k, v in native_loader.status().items()
+                if k != "reason"}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    total = sum(launches.values())
+    emit({"phase": "measure", "config": os.path.relpath(CONFIG, ROOT),
+          "print_config": printed, "get_flops": flops,
+          "benchmark_fps": fps, "profile_step": {
+              "batch": MEASURE_BATCH, "trace": trace,
+              "breakdown": breakdown, "memory": mem},
+          "mfu_experiment": mfu, "bench_host_pipeline": host,
+          "kernel_launches": {**launches, "whole_phase": total},
+          "kernel_on_inputs": on_inputs, "seconds": seconds,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return total, on_inputs
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4795,13 +5084,15 @@ def main(argv=None) -> int:
     launches["sph2pob_iou_pairwise"] += trained
     trained, on_demo_input = phase_visualize(args.seed, args.reps)
     launches["sph2pob_iou_pairwise"] += trained
+    trained, on_measure_inputs = phase_measure(args.seed, args.reps)
+    launches["sph2pob_iou_pairwise"] += trained
     # K1 on the inputs its paths gave it, beside its seeded shapes
     shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input,
                                        on_iou_input, on_ssd_input,
                                        *on_frcnn_input, on_val_nms_input,
                                        on_input_assign, on_pretrained_assign,
                                        *on_parallel_inputs, on_robust_input,
-                                       on_demo_input]
+                                       on_demo_input, *on_measure_inputs]
     idle = [k.name for k in KERNELS if launches[k.name] < 1]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

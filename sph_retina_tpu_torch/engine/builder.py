@@ -85,6 +85,7 @@ def build_model(cfg: dict) -> SphRetinaNet:
         depth=bb.get("depth", 50),
         groups=bb.get("groups", 1),
         base_width=bb.get("base_width", 64),
+        remat=bb.get("remat", False),
         dtype=dtype,
     )
 

@@ -37,7 +37,8 @@ def _common(cfg_dict):
         img_size=tuple(cfg_dict.get("img_size", (512, 1024))),
         dtype=torch.bfloat16 if cfg_dict.get("bf16", True) else torch.float32,
         backbone=dict(depth=bb.get("depth", 50), groups=bb.get("groups", 1),
-                      base_width=bb.get("base_width", 64)),
+                      base_width=bb.get("base_width", 64),
+                      remat=bb.get("remat", False)),
     )
 
 
@@ -182,7 +183,8 @@ class SSDFamily(_Family):
     def build(cfg_dict):
         c = _common(cfg_dict)
         model = SphSSD(num_classes=c["num_classes"],
-                       box_version=c["box_version"], dtype=c["dtype"])
+                       box_version=c["box_version"], dtype=c["dtype"],
+                       remat=c["backbone"]["remat"])
         # like the JAX package, the SSD config reads neither train_cfg (its
         # assigner and backend are fixed) nor test_cfg
         return model, ssd_config(c["num_classes"], img_size=c["img_size"],

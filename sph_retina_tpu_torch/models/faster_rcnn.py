@@ -105,11 +105,12 @@ class SphFasterRCNN(nn.Module):
 
     def __init__(self, num_classes: int, box_version: int = 4,
                  depth: int = 50, dtype: torch.dtype = torch.bfloat16,
-                 groups: int = 1, base_width: int = 64):
+                 groups: int = 1, base_width: int = 64, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.backbone = ResNet(depth=depth, out_indices=(0, 1, 2, 3),
-                               groups=groups, base_width=base_width)
+                               groups=groups, base_width=base_width,
+                               remat=remat)
         self.neck = FPN(self.backbone.out_channels, out_channels=256,
                         start_level=0, num_outs=5,
                         add_extra_convs="on_output")

@@ -102,11 +102,12 @@ class SphFCOS(nn.Module):
 
     def __init__(self, num_classes: int, box_version: int = 4,
                  depth: int = 50, dtype: torch.dtype = torch.bfloat16,
-                 groups: int = 1, base_width: int = 64):
+                 groups: int = 1, base_width: int = 64, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.backbone = ResNet(depth=depth, out_indices=(0, 1, 2, 3),
-                               groups=groups, base_width=base_width)
+                               groups=groups, base_width=base_width,
+                               remat=remat)
         self.neck = FPN(self.backbone.out_channels, out_channels=256,
                         start_level=1, num_outs=5)
         self.bbox_head = SphFCOSHead(num_classes=num_classes,

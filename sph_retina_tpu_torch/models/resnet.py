@@ -9,6 +9,12 @@ Sub-module names follow the variables of the JAX package's Flax modules
 (``layer1_0``, ``downsample_conv``, ``downsample_bn``), so that
 ``from_flax`` is a mechanical rename.
 
+``remat=True`` checkpoints each residual block (the JAX package's
+``nn.remat`` of each block): its activations are dropped after the forward
+pass and recomputed in the backward one. Only a training forward with
+gradients on checkpoints; eval, ``no_grad`` and ``torch.export`` run the
+blocks as they are. The parameters and their names do not change.
+
 Precision: parameters and BN moments stay fp32. A convolution casts its
 weights to the dtype of its input at call time, and the batch norm folds
 into one scale and one shift of that dtype; the network casts the image to
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 ARCH_SETTINGS = {
     18: ("basic", (2, 2, 2, 2)),
@@ -147,7 +154,8 @@ class ResNet(nn.Module):
 
     def __init__(self, depth: int = 50,
                  out_indices: Sequence[int] = (0, 1, 2, 3),
-                 groups: int = 1, base_width: int = 64):
+                 groups: int = 1, base_width: int = 64,
+                 remat: bool = False):
         super().__init__()
         block_kind, stage_blocks = ARCH_SETTINGS[depth]
         if block_kind != "bottleneck" and (groups != 1 or base_width != 64):
@@ -155,6 +163,7 @@ class ResNet(nn.Module):
                              "(>= 50)")
         self.out_indices = tuple(out_indices)
         self.stage_blocks = stage_blocks
+        self.remat = remat
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
 
@@ -182,9 +191,12 @@ class ResNet(nn.Module):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, 2, 1)
         outs = []
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for stage, n_blocks in enumerate(self.stage_blocks):
             for b in range(n_blocks):
-                x = getattr(self, f"layer{stage + 1}_{b}")(x)
+                block = getattr(self, f"layer{stage + 1}_{b}")
+                x = checkpoint(block, x, use_reentrant=False) if remat \
+                    else block(x)
             if stage in self.out_indices:
                 outs.append(x)
         return tuple(outs)

@@ -24,6 +24,7 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..boxes.anchors import SphSSDAnchorGenerator
 from ..boxes.assigner import MaxIoUAssigner
@@ -68,10 +69,16 @@ class SphSSDHead(nn.Module):
 
 
 class SphSSD(nn.Module):
+    """VGG16 trunk + SSD neck + head. ``remat=True`` checkpoints the whole
+    trunk in a training forward with gradients (the JAX package's
+    ``nn.remat(SSDVGG)``): VGG's full-resolution activations are recomputed
+    in the backward pass instead of stored."""
+
     def __init__(self, num_classes: int, box_version: int = 4,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.backbone = SSDVGG()
         self.neck = SSDNeck(SSD_OUT_CHANNELS)
         self.bbox_head = SphSSDHead(num_classes=num_classes,
@@ -81,7 +88,11 @@ class SphSSD(nn.Module):
         """images: (B, H, W, 3) float, normalised -> (cls_scores,
         bbox_preds) per level."""
         x = images.to(self.dtype).permute(0, 3, 1, 2)
-        return self.bbox_head(self.neck(self.backbone(x)))
+        if self.remat and self.training and torch.is_grad_enabled():
+            feats = checkpoint(self.backbone, x, use_reentrant=False)
+        else:
+            feats = self.backbone(x)
+        return self.bbox_head(self.neck(feats))
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

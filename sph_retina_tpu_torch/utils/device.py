@@ -14,3 +14,9 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' (--device cpu) "
             "to run on the CPU deliberately")
     return device
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device``; the CPU has none queued."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -70,7 +70,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
         "boxes/anchor_opt", "visualize/canvas", "visualize/plots",
         "visualize/camera", "visualize/kent_vis", "optimize_anchors",
         "image_demo", "browse_dataset", "vis_kent", "create_result_gif",
-        "analyze_logs")} <= names
+        "analyze_logs", "print_config", "get_flops", "benchmark_fps",
+        "profile_step", "mfu_experiment", "bench_host_pipeline")} <= names
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{os.path.relpath(path, REPO)} imports {sorted(bad)}"
