@@ -5,6 +5,8 @@
     python3 chip_smoke.py --fmad-probe # also: K1 built with FMA contraction
     python3 chip_smoke.py --assign-probe  # only: the eager sph2pob_standard
                                           # assignment at the R50 width
+    python3 chip_smoke.py --study      # only: the full sphere-bench study,
+                                       # RetinaNet l1 and ciou, 24 epochs
 
 Drives the main paths of ``sph_retina_tpu_torch`` the way a user would, at
 full width: on the shipped rotated RetinaNet-R50-FPN config (47 classes,
@@ -33,7 +35,10 @@ camera, ``optimize_anchors``, ``vis_kent``, the plots, ``analyze_logs``,
 ``create_result_gif``, ``browse_dataset``, every figure without
 matplotlib); the measurement tools (``print_config``, ``get_flops``,
 ``benchmark_fps``, ``profile_step`` with the backbone's ``remat`` off and
-on, ``mfu_experiment``, ``bench_host_pipeline``); and the IoU tool
+on, ``mfu_experiment``, ``bench_host_pipeline``); the sphere-bench study
+tools (``assign_audit`` on the committed annotations against the published
+audit, ``ap_study --quick``, ``detection_diagnosis``), the dataset
+converters and the torchrun launchers; and the IoU tool
 (``benchmark_iou.main``, the kernel and the other backends) — and holds
 every CUDA kernel of those paths against its plain PyTorch version on the
 card.
@@ -187,7 +192,28 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             limit; K1 bitwise at the child's assignment input (128, 98208)
             D=4); ``bench_host_pipeline`` at 512x1024, 16 images, workers
             1 2 4, the link probe
-22. the kernels' summary line, then the last line
+22. study  the sphere-bench study tools, the converters and the
+            launchers: ``assign_audit.main`` on the committed train
+            annotations (500 images, 5 backends and the unbiased oracle,
+            batch 8; seconds and a table row a backend) held to the
+            published ``work_dirs/assign_audit/audit.json`` (GTs and
+            anchors exactly, positives a GT within 1 %, flip rates within
+            1e-3, the oracle's 0.0, the published findings), K1 63 times
+            at (88, 24552) D=4 and bitwise on the last batch;
+            ``ap_study.main --quick`` (six RetinaNet variants, 2 epochs at
+            128x256, data written under its output: seconds and AP50 each;
+            K1 once a step in ``l1`` and ``ciou`` at (192, 6138) D=4, never
+            in the others; the published report's keys, every
+            ``eval_arrays.npz``); ``detection_diagnosis`` on those runs
+            and on one of the val ground truth jittered into detections,
+            on the card and on the CPU (integers equal, floats within
+            1e-6, detections counted); the seven
+            converters on files the phase writes; ``scripts/dist_train.sh
+            CONFIG 1 --synthetic`` (2 steps under torchrun, K1 once a step
+            at (256, 98208) D=5 as the child reports it, bitwise on its
+            last input) and ``scripts/dist_test.sh`` on its checkpoint (K1
+            once a val image); the committed annotations' sha256 unchanged
+23. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
 Weights are random, made from ``--seed``; no number printed here says
@@ -213,6 +239,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import textwrap
 import threading
 import time
 import urllib.request
@@ -226,28 +253,38 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from sph_retina_tpu_torch import analyze_logs as logs_cli
 from sph_retina_tpu_torch import analyze_results as analyze_cli
+from sph_retina_tpu_torch import ap_study as ap_cli
 from sph_retina_tpu_torch import apis
+from sph_retina_tpu_torch import assign_audit as audit_cli
 from sph_retina_tpu_torch import bench_host_pipeline as host_cli
 from sph_retina_tpu_torch import benchmark_fps as fps_cli
 from sph_retina_tpu_torch import benchmark_iou
 from sph_retina_tpu_torch import browse_dataset as browse_cli
+from sph_retina_tpu_torch import cityscapes as city_cli
 from sph_retina_tpu_torch import coco_error_analysis as error_cli
 from sph_retina_tpu_torch import confusion_matrix as confusion_cli
+from sph_retina_tpu_torch import convert_anno as anno_cli
 from sph_retina_tpu_torch import convert_reference_checkpoint as convert_cli
 from sph_retina_tpu_torch import create_result_gif as gif_cli
 from sph_retina_tpu_torch import deployment_test as deployment_cli
+from sph_retina_tpu_torch import detection_diagnosis as diag_cli
 from sph_retina_tpu_torch import eval_metric as metric_cli
 from sph_retina_tpu_torch import eval_pr_curve as pr_cli
 from sph_retina_tpu_torch import export as export_cli
 from sph_retina_tpu_torch import get_flops as flops_cli
+from sph_retina_tpu_torch import get_image_metas as metas_cli
 from sph_retina_tpu_torch import image_demo as demo_cli
+from sph_retina_tpu_torch import images2coco as images_cli
 from sph_retina_tpu_torch import mfu_experiment as mfu_cli
 from sph_retina_tpu_torch import occluded_recall as recall_cli
 from sph_retina_tpu_torch import optimize_anchors as anchors_cli
+from sph_retina_tpu_torch import pascal_voc as voc_cli
 from sph_retina_tpu_torch import print_config as config_cli
 from sph_retina_tpu_torch import profile_step as profile_cli
 from sph_retina_tpu_torch import publish as publish_cli
 from sph_retina_tpu_torch import robustness_eval as summary_cli
+from sph_retina_tpu_torch import split_coco as split_cli
+from sph_retina_tpu_torch import synth_dataset as synth_cli
 from sph_retina_tpu_torch import test as test_cli
 from sph_retina_tpu_torch import test_robustness as robust_cli
 from sph_retina_tpu_torch import train as train_cli
@@ -3862,31 +3899,42 @@ PARALLEL_OPTIONS = ("bf16=False", "lr_config.warmup_ratio=1.0",
                     "evaluation.interval=1")
 PARALLEL_SHAPE = (128, 98208, 5)  # (b): each rank's 2 images x max_gt 64
 
+# K1 recorded in a child process: each call's (N, M, D) by the assigner and
+# by the NMS in ``calls``, the assigner's last input (on the host) in
+# ``last["input"]``; ``sph2pob_iou_pairwise.launches`` counts its launches.
+K1_CHILD_RECORDER = r'''
+import torch
+from sph_retina_tpu_torch.boxes import nms
+from sph_retina_tpu_torch.models import single_stage
+from sph_retina_tpu_torch.ops.sph2pob_iou import sph2pob_iou_pairwise
+calls, last = {"assign": [], "nms": []}, {}
+
+def recording(site):
+    def call(boxes1, boxes2):
+        calls[site].append([boxes1.shape[0], boxes2.shape[0], boxes1.shape[1]])
+        if site == "assign":
+            last["input"] = (boxes1.cpu(), boxes2.cpu())
+        return sph2pob_iou_pairwise(boxes1, boxes2)
+    return call
+
+single_stage.sph2pob_iou_pairwise = recording("assign")
+nms.sph2pob_iou_pairwise = recording("nms")
+'''
+
 # One rank of phase (b), run as ``python -c PARALLEL_CHILD ARGV_JSON OUT``:
 # the group first (gloo: NCCL refuses two ranks on one card), then
 # ``train.main`` takes it as it finds it. Prints one JSON line.
 PARALLEL_CHILD = r'''
 import hashlib, json, os, sys, time
 sys.modules["torch.utils.tensorboard"] = None
-import torch
+''' + K1_CHILD_RECORDER + r'''
 from sph_retina_tpu_torch import parallel, train
-from sph_retina_tpu_torch.boxes import nms
 from sph_retina_tpu_torch.engine import runner, train as engine_train
-from sph_retina_tpu_torch.models import single_stage
-from sph_retina_tpu_torch.ops.sph2pob_iou import sph2pob_iou_pairwise
 
 argv, out, timeout_s = json.loads(sys.argv[1]), sys.argv[2], float(sys.argv[3])
 torch.backends.cudnn.deterministic = True
 torch.backends.cudnn.allow_tf32 = False
-calls, last, digests, writes, reduce_ms = {"assign": [], "nms": []}, {}, [], [], []
-
-def recording(site):
-    def call(boxes1, boxes2):
-        calls[site].append([list(boxes1.shape), list(boxes2.shape)])
-        if site == "assign":
-            last["input"] = (boxes1.cpu(), boxes2.cpu())
-        return sph2pob_iou_pairwise(boxes1, boxes2)
-    return call
+digests, writes, reduce_ms = [], [], []
 
 def timed_reduce(params, real=engine_train.all_reduce_gradients):
     torch.cuda.synchronize()
@@ -3915,8 +3963,6 @@ def building(*args, build=train.build_training, **kwargs):
     stepped.generator = step.generator
     return (*parts[:4], stepped)
 
-single_stage.sph2pob_iou_pairwise = recording("assign")
-nms.sph2pob_iou_pairwise = recording("nms")
 engine_train.all_reduce_gradients = timed_reduce
 runner._write_atomically = counting
 train.build_training = building
@@ -4168,9 +4214,8 @@ def phase_parallel(seed: int, reps: int) -> tuple[int, list]:
                     or f"process {r['rank']}/2; backend: gloo; device: " \
                     f"{'cuda' if on_card else 'cpu'};" not in said:
                 raise AssertionError(f"rank {r['rank']} said {said[-2000:]}")
-            want_call = [[PARALLEL_SHAPE[0], PARALLEL_SHAPE[2]],
-                         [PARALLEL_SHAPE[1], PARALLEL_SHAPE[2]]]
-            if r["calls"]["assign"] != [want_call] * PARALLEL_RANK_STEPS \
+            if r["calls"]["assign"] \
+                    != [list(PARALLEL_SHAPE)] * PARALLEL_RANK_STEPS \
                     or r["launches"] != PARALLEL_RANK_STEPS + len(
                         r["calls"]["nms"]):
                 raise AssertionError(f"rank {r['rank']}: {r['launches']} "
@@ -5027,6 +5072,604 @@ def phase_measure(seed: int, reps: int) -> tuple[int, list]:
     return total, on_inputs
 
 
+# --------------------------------------------------------------------------- #
+# phase study: the sphere-bench study tools, the converters, the launchers
+# --------------------------------------------------------------------------- #
+SPHERE_BENCH = os.path.join(ROOT, "work_dirs", "sphere_bench")
+SPHERE_BENCH_ANNOTATIONS = tuple(
+    os.path.join(SPHERE_BENCH, "annotations", f"instances_{s}.json")
+    for s in ("train", "val"))
+PUBLISHED_AUDIT = os.path.join(ROOT, "work_dirs", "assign_audit",
+                               "audit.json")
+PUBLISHED_STUDY = os.path.join(ROOT, "work_dirs", "ap_study", "report.json")
+AUDIT_BACKENDS = ("sph2pob_efficient", "sph2pob_efficient_jnp", "sph", "fov",
+                  "unbiased")
+AUDIT_SHAPE = (88, 24552, 4)   # batch 8 x the train split's 11 GTs at most
+AUDIT_BATCHES = 63             # 500 images at batch 8, the last one padded
+AUDIT_DENSITY_TOLERANCE = 0.01   # relative, positives a GT
+AUDIT_FLIP_TOLERANCE = 1e-3      # the category flip rate
+QUICK_SHAPE = (192, 6138, 4)   # batch 8 x max_gt 24 against the 128x256 grid
+QUICK_STEPS = 6                # 2 epochs of 24 images at batch 8
+QUICK_K1_VARIANTS = ("l1", "ciou")   # their assigner is sph2pob_efficient
+LAUNCH_IMAGES = 8              # dist_train.sh: 2 steps at batch 4
+LAUNCH_TEST_IMAGES = 16        # test.py --synthetic's set
+LAUNCH_TIMEOUT_S = 300
+STUDY_VARIANTS = ("l1", "ciou")      # --study: 24 epochs each, seed 0
+STUDY_SHAPE = (192, 24552, 4)        # batch 8 x max_gt 24 at 256x512
+STUDY_STEPS = 24 * (500 // 8)
+
+# Put on a launcher child's path as ``sitecustomize``: in a process that
+# torchrun started (LOCAL_RANK set), K1 is recorded (``K1_CHILD_RECORDER``),
+# and at exit its launches, the calls' shapes and the last assignment input
+# are written beside ``SMOKE_K1_REPORT``.
+LAUNCH_SITECUSTOMIZE = r'''
+import atexit, json, os
+_out = os.environ.get("SMOKE_K1_REPORT")
+if _out and "LOCAL_RANK" in os.environ:
+''' + textwrap.indent(K1_CHILD_RECORDER + r'''
+def _report():
+    rank = os.environ["RANK"]
+    if "input" in last:
+        torch.save(last["input"], f"{_out}.rank{rank}.pt")
+    with open(f"{_out}.rank{rank}.json", "w") as f:
+        json.dump({"launches": sph2pob_iou_pairwise.launches,
+                   "calls": calls}, f)
+
+atexit.register(_report)
+''', "    ")
+
+
+@contextlib.contextmanager
+def k1_recorded():
+    """K1 as the assigner and the NMS call it, each call's (N, M, D)
+    recorded and the last call's inputs kept; its launch counter set to 0
+    before, read into ``launches`` after."""
+    rec = {"shapes": [], "last": None}
+    real = (single_stage.sph2pob_iou_pairwise,
+            nms_module.sph2pob_iou_pairwise)
+
+    def call(boxes1, boxes2):
+        rec["shapes"].append([boxes1.shape[0], boxes2.shape[0],
+                              boxes1.shape[1]])
+        rec["last"] = (boxes1.clone(), boxes2.clone())
+        return sph2pob_iou_pairwise(boxes1, boxes2)
+
+    single_stage.sph2pob_iou_pairwise = nms_module.sph2pob_iou_pairwise = call
+    sph2pob_iou_pairwise.launches = 0
+    try:
+        yield rec
+    finally:
+        single_stage.sph2pob_iou_pairwise, \
+            nms_module.sph2pob_iou_pairwise = real
+        torch.cuda.synchronize()
+        rec["launches"] = sph2pob_iou_pairwise.launches
+
+
+def _bitwise_on(inputs, what: str, reps: int) -> dict:
+    """K1 against its plain version on recorded inputs: bitwise or fail."""
+    b1, b2 = inputs
+    res = {"input": what, **check_kernel(KERNELS[0], b1, b2, reps,
+                                         identical=False)}
+    if not res["bitwise_equal"]:
+        raise AssertionError(f"{what}: K1 differs from its plain version "
+                             f"by {res['max_abs_err']}")
+    return res
+
+
+def _sha256(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def audit_signature(b: dict) -> dict:
+    """The published audit's findings (the assertions of
+    ``tests/test_assign_audit.py::test_published_audit_signature_holds``),
+    each True where the report ``b`` (backend -> summary) holds it."""
+    fused, unfused, sph, fov, oracle = (b[k] for k in AUDIT_BACKENDS)
+
+    def flip(s):
+        return s["flip_confusion_vs_unbiased"]["anchor_category_flip_rate"]
+
+    ppg = {k: s["pos_per_gt_mean"] for k, s in b.items()}
+    return {
+        "fused_vs_unfused_density": abs(ppg["sph2pob_efficient"]
+                                        - ppg["sph2pob_efficient_jnp"])
+        <= 0.02 * ppg["sph2pob_efficient_jnp"],
+        "fused_vs_unfused_flips": abs(flip(fused) - flip(unfused)) < 1e-3,
+        "sph_under_assigns": ppg["sph"] < 0.8 * ppg["sph2pob_efficient"]
+        and ppg["sph"] < 0.8 * ppg["unbiased"]
+        and sph["band_calibration_oracle_0.3_0.7"]["signed_err_mean"] < -0.05,
+        "fov_healthy": abs(ppg["fov"] - ppg["sph2pob_efficient"])
+        <= 0.2 * ppg["sph2pob_efficient"] and flip(fov) < 0.02,
+        "positives_real": all(s["pos_oracle_iou_mean"] >= 0.5
+                              for s in (fused, unfused, sph, fov, oracle)),
+        "oracle_self_consistent": flip(oracle) == 0.0,
+    }
+
+
+@contextlib.contextmanager
+def audit_timed():
+    """``assign_audit``'s oracle overlaps and each backend's audit timed on
+    the host clock, the card synchronised at the end of each; yields the
+    seconds by backend (the oracle's under ``"oracle"``)."""
+    seconds = {}
+    real = audit_cli.oracle_overlaps, audit_cli.audit_backend
+
+    def timed(key, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds[key] = time.perf_counter() - t0
+        return out
+
+    audit_cli.oracle_overlaps = lambda *a, **k: timed("oracle", real[0],
+                                                      *a, **k)
+    audit_cli.audit_backend = lambda bk, *a, **k: timed(bk, real[1], bk,
+                                                        *a, **k)
+    try:
+        yield seconds
+    finally:
+        audit_cli.oracle_overlaps, audit_cli.audit_backend = real
+
+
+def run_audit_on_card(tmp: str, reps: int) -> tuple[dict, dict]:
+    """``assign_audit.main`` on the committed train annotations, read only,
+    held to the published report; returns its line and K1's check."""
+    out = os.path.join(tmp, "audit")
+    with k1_recorded() as rec, audit_timed() as by_backend:
+        _, seconds = _timed(lambda: _said(lambda: audit_cli.main([
+            "--data-root", SPHERE_BENCH, "--out", out, "--config",
+            IOU_CONFIG, "--split", "train", "--batch", "8",
+            "--backends", *AUDIT_BACKENDS])))
+    if set(by_backend) != {"oracle", *AUDIT_BACKENDS}:
+        raise AssertionError(f"audit: timed only {sorted(by_backend)}")
+    with open(os.path.join(out, "audit.json")) as f:
+        got = json.load(f)
+    with open(PUBLISHED_AUDIT) as f:
+        want = json.load(f)
+    if rec["launches"] != AUDIT_BATCHES \
+            or rec["shapes"] != [list(AUDIT_SHAPE)] * AUDIT_BATCHES:
+        raise AssertionError(f"audit: {rec['launches']} K1 launches at "
+                             f"{rec['shapes'][:3]}...")
+    gaps = {}
+    for name in AUDIT_BACKENDS:
+        g, w = got["backends"][name], want["backends"][name]
+        fl = [s["flip_confusion_vs_unbiased"]["anchor_category_flip_rate"]
+              for s in (g, w)]
+        gaps[name] = {
+            "pos_per_gt_mean": [g["pos_per_gt_mean"], w["pos_per_gt_mean"]],
+            "flip_rate": fl,
+            "density_rel_gap": abs(g["pos_per_gt_mean"]
+                                   - w["pos_per_gt_mean"])
+            / w["pos_per_gt_mean"],
+            "flip_gap": abs(fl[0] - fl[1])}
+    signature = audit_signature(got["backends"])
+    bad = [k for k, v in gaps.items()
+           if not (v["density_rel_gap"] <= AUDIT_DENSITY_TOLERANCE
+                   and v["flip_gap"] <= AUDIT_FLIP_TOLERANCE)]
+    if (got["n_gts"], got["n_anchors"], got["n_images"]) \
+            != (want["n_gts"], want["n_anchors"], want["n_images"]) or bad \
+            or gaps["unbiased"]["flip_rate"][0] != 0.0 \
+            or not all(signature.values()):
+        raise AssertionError(f"audit against the published report: "
+                             f"{got['n_gts']} GTs, {got['n_anchors']} "
+                             f"anchors, off {bad}: {gaps}; {signature}")
+    check = _bitwise_on(rec["last"], "study: the audit's last batch "
+                        "(sph2pob_efficient)", reps)
+    with open(os.path.join(out, "ASSIGN_AUDIT.md")) as f:
+        rows = [line for line in f if line.startswith("| ")][1:]
+    return {"n_images": got["n_images"], "n_gts": got["n_gts"],
+            "n_anchors": got["n_anchors"], "seconds": seconds,
+            "seconds_by_backend": by_backend,
+            "against_published": gaps, "signature": signature,
+            "rows": [r.strip() for r in rows],
+            "k1_launches": rec["launches"]}, check
+
+
+def _k1_per_run(rec: dict, fn_name: str, counts: dict):
+    """``ap_study.<fn_name>`` that adds each call's K1 launches and shapes
+    to ``counts`` under its run directory's name."""
+    real = getattr(ap_cli, fn_name)
+
+    def counted(*args, **kwargs):
+        before, calls = sph2pob_iou_pairwise.launches, len(rec["shapes"])
+        try:
+            return real(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            run = os.path.basename(kwargs["work_dir"])
+            counts.setdefault(run, {})[fn_name] = {
+                "launches": sph2pob_iou_pairwise.launches - before,
+                "shapes": rec["shapes"][calls:]}
+    return real, counted
+
+
+@contextlib.contextmanager
+def k1_by_run():
+    """K1 recorded (``k1_recorded``), and its launches and shapes in each
+    study run's training and evaluation apart."""
+    counts = {}
+    with k1_recorded() as rec:
+        patched = {name: _k1_per_run(rec, name, counts)
+                   for name in ("train_variant", "eval_variant")}
+        for name, (_, counted) in patched.items():
+            setattr(ap_cli, name, counted)
+        try:
+            yield rec, counts
+        finally:
+            for name, (real, _) in patched.items():
+                setattr(ap_cli, name, real)
+
+
+def run_quick_study(tmp: str, seed: int, reps: int) -> tuple[dict, dict,
+                                                              list]:
+    """``ap_study.main(["--quick", "--out", TMP, "--seeds", seed])``: the
+    six RetinaNet variants, 2 epochs each at 128x256 on data it writes under
+    TMP; returns its line, K1's check and the run directories."""
+    out = os.path.join(tmp, "ap_quick")
+    with k1_by_run() as (rec, counts):
+        said, seconds = _timed(lambda: _said(lambda: ap_cli.main(
+            ["--quick", "--out", out, "--seeds", str(seed)])))
+    with open(os.path.join(out, "report.json")) as f:
+        report = json.load(f)
+    with open(PUBLISHED_STUDY) as f:
+        published = json.load(f)
+    names = [n for n, _ in ap_cli.VARIANTS]
+    runs = [os.path.join(out, f"{n}_s{seed}") for n in names]
+    seed_keys = set(published["variants"]["ciou"]["seeds"]["0"])
+    want_call = list(QUICK_SHAPE)
+    for n in names:
+        c = counts[f"{n}_s{seed}"]
+        k1 = QUICK_STEPS if n in QUICK_K1_VARIANTS else 0
+        if c["train_variant"]["launches"] != k1 \
+                or c["train_variant"]["shapes"] != [want_call] * k1 \
+                or c["eval_variant"]["launches"] != 0:
+            raise AssertionError(f"quick study {n}: K1 {c}")
+    missing = [r for r in runs
+               if not os.path.exists(os.path.join(r, "eval_arrays.npz"))]
+    entries = {n: report["variants"][n]["seeds"][str(seed)] for n in names}
+    if set(report) != set(published) or missing \
+            or any(set(e) != seed_keys for e in entries.values()) \
+            or not os.path.exists(os.path.join(out, "AP_STUDY.md")) \
+            or report["dataset"]["root"] != os.path.join(out, "sphere_bench"):
+        raise AssertionError(f"quick study: keys {sorted(report)}, missing "
+                             f"{missing}, entries {entries}")
+    check = _bitwise_on(rec["last"], "study: the quick study's last "
+                        "assignment input (ciou, 128x256)", reps)
+    return {"seconds": seconds,
+            "variants": {n: {"AP50": e["AP50"], "mAP": e["mAP"],
+                             "train_seconds": e["train_seconds"],
+                             "k1_launches": counts[f"{n}_s{seed}"][
+                                 "train_variant"]["launches"]}
+                         for n, e in entries.items()},
+            "report_keys": sorted(report),
+            "k1_launches": rec["launches"]}, check, runs
+
+
+def jittered_gt_run(run: str, out: str, seed: int) -> str:
+    """A run directory whose ``eval_arrays.npz`` holds ``run``'s val ground
+    truth and, as detections of the GT's class with seeded scores in
+    [0.05, 1), each GT jittered by 0.05-3 degrees and each GT's centre moved
+    by 5-30 degrees: hits, mislocalised and hallucinated detections for the
+    diagnosis to count (the quick study's 2-epoch runs detect nothing)."""
+    a = dict(np.load(os.path.join(run, "eval_arrays.npz")))
+    rng = np.random.default_rng(seed)
+    gt = a["gt_boxes"].astype(np.float64)
+    near = rng.uniform(0.05, 3.0, gt.shape) \
+        * rng.choice([-1.0, 1.0], gt.shape)
+    far = np.zeros_like(gt)
+    far[..., :2] = rng.uniform(5.0, 30.0, gt[..., :2].shape) \
+        * rng.choice([-1.0, 1.0], gt[..., :2].shape)
+    a["boxes"] = np.concatenate([gt + near, gt + far], 1).astype(np.float32)
+    a["labels"] = np.concatenate([a["gt_labels"]] * 2, 1)
+    a["valid"] = np.concatenate([a["gt_mask"]] * 2, 1)
+    a["scores"] = rng.uniform(0.05, 1.0, a["valid"].shape).astype(np.float32)
+    os.makedirs(out)
+    np.savez(os.path.join(out, "eval_arrays.npz"), **a)
+    return out
+
+
+def run_diagnosis_both(runs: list, ann: str) -> tuple[dict, dict]:
+    """``detection_diagnosis.main`` on the runs on the card and on the CPU:
+    integers equal, floats within ``TOOL_TOLERANCE``, and detections
+    counted in at least one run. Returns the line and the card's report."""
+    reports, seconds = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            reports[dev], seconds[dev] = _timed(lambda: diag_cli.main(
+                [*runs, "--ann", ann, "--device", dev]))
+        if len(reports[dev]) != len(runs):
+            raise AssertionError(f"diagnosis on {dev}: {out.getvalue()}")
+    if not any(r["all"]["dets"] for r in reports["cuda"].values()):
+        raise AssertionError(f"diagnosis: no run has a detection to "
+                             f"compare: {reports['cuda']}")
+    gap = _same_numbers(reports["cuda"], reports["cpu"],
+                        "detection_diagnosis")
+    return {"seconds": seconds, "card_vs_cpu_max_float_gap": gap,
+            "all": {k: v["all"] for k, v in reports["cuda"].items()}}, \
+        reports["cuda"]
+
+
+def run_converters(tmp: str, coco_ann: str, img_dir: str) -> dict:
+    """Each converter through its ``main(argv)`` on files written here;
+    the JSON it writes holds what was written."""
+    root = os.path.join(tmp, "convert")
+    os.makedirs(os.path.join(root, "Annotations"))
+    for i in range(3):
+        objects = "".join(
+            f"<object><name>{name}</name><difficult>{d}</difficult><bndbox>"
+            f"<xmin>{11 + 40 * j}</xmin><ymin>21</ymin><xmax>{61 + 40 * j}"
+            f"</xmax><ymax>81</ymax></bndbox></object>"
+            for j, (name, d) in enumerate((("person", 0), ("car", 1))))
+        with open(os.path.join(root, "Annotations", f"{i:06d}.xml"), "w") as f:
+            f.write(f"<annotation><filename>{i:06d}.jpg</filename><size>"
+                    f"<width>400</width><height>200</height></size>"
+                    f"{objects}</annotation>")
+    inst = np.full((40, 96), 7, np.int32)
+    inst[2:10, 3:12] = inst[30:38, 80:94] = 24      # one crowd id, 2 parts
+    inst[12:25, 20:40] = 26001
+    gt_dir = os.path.join(root, "gtFine", "aachen")
+    os.makedirs(gt_dir)
+    from PIL import Image
+
+    Image.fromarray(inst).save(
+        os.path.join(gt_dir, "aachen_000000_000019_gtFine_instanceIds.png"))
+    raw = os.path.join(root, "raw.json")
+    with open(raw, "w") as f:
+        json.dump({"images": [], "annotations": [
+            {"id": 1, "bbox": [0.0, 0.0, 30.0, 20.0]}]}, f)
+    with open(os.path.join(root, "classes.txt"), "w") as f:
+        f.write("\n".join(f"class_{i}" for i in range(4)) + "\n")
+    out = {k: os.path.join(root, f"{k}.json")
+           for k in ("voc", "city", "coco", "metas", "radians")}
+    for fn, argv in (
+            (voc_cli.main, [os.path.join(root, "Annotations"), out["voc"]]),
+            (city_cli.main, [os.path.join(root, "gtFine"), out["city"]]),
+            (split_cli.main, [coco_ann, os.path.join(root, "splits"),
+                              "--labeled-percent", "25", "--fold", "2"]),
+            (images_cli.main, [img_dir, os.path.join(root, "classes.txt"),
+                               out["coco"]]),
+            (metas_cli.main, ["--img-dir", img_dir, "--out", out["metas"]]),
+            (anno_cli.main, [raw, "--out", out["radians"]])):
+        _said(lambda: fn(argv))
+    got = {}
+    for k, path in out.items():
+        with open(path) as f:
+            got[k] = json.load(f)
+    with open(coco_ann) as f:
+        n_coco = len(json.load(f)["images"])
+    n_png = len([f for f in os.listdir(img_dir) if f.endswith(".png")])
+    splits = sorted(os.listdir(os.path.join(root, "splits")))
+    with open(os.path.join(root, "splits", "instances_train.1@25.json")) as f:
+        labeled = json.load(f)
+    counts = {
+        "voc": [len(got["voc"]["images"]), len(got["voc"]["annotations"]),
+                sum(a["iscrowd"] for a in got["voc"]["annotations"])],
+        "cityscapes": [len(got["city"]["annotations"]),
+                       sum(a["iscrowd"] for a in got["city"]["annotations"])],
+        "split_coco": [len(splits), len(labeled["images"])],
+        "images2coco": len(got["coco"]["images"]),
+        "get_image_metas": len(got["metas"]),
+        "convert_anno": got["radians"]["annotations"][0]["bbox"][:2]}
+    want = {"voc": [3, 6, 3], "cityscapes": [3, 2],
+            "split_coco": [4, round(n_coco * 0.25)], "images2coco": n_png,
+            "get_image_metas": n_png, "convert_anno": [180.0, 90.0]}
+    if counts != want:
+        raise AssertionError(f"converters: {counts}, expected {want}")
+    return counts
+
+
+def _launched(argv: list, env: dict, log: str) -> float:
+    """A launcher script as its own process group, its output to ``log``;
+    killed at ``LAUNCH_TIMEOUT_S``. Returns its seconds."""
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=LAUNCH_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait(timeout=30)
+    if rc != 0:
+        with open(log) as f:
+            raise AssertionError(f"{argv[0]} ended with {rc}:\n"
+                                 f"{f.read()[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def run_launchers(tmp: str, reps: int) -> tuple[dict, int, dict]:
+    """``scripts/dist_train.sh CONFIG 1 --synthetic``: 2 steps of the
+    rotated config under torchrun on the card (K1 once a step at
+    ``ASSIGN_SHAPE``, as the child reports), then ``scripts/dist_test.sh``
+    on its checkpoint (K1 once a val image of its 16). Returns the line, the
+    children's K1 launches and K1's check on the child's last assignment
+    input."""
+    site = os.path.join(tmp, "site")
+    os.makedirs(site)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(LAUNCH_SITECUSTOMIZE)
+    scripts = os.path.join(ROOT, "sph_retina_tpu_torch", "scripts")
+    work = os.path.join(tmp, "launched")
+    reports = {k: os.path.join(tmp, f"k1_{k}") for k in ("train", "test")}
+    env = dict(os.environ, PYTHON=sys.executable, PORT=str(free_port()),
+               PYTHONPATH=os.pathsep.join(
+                   [site] + ([os.environ["PYTHONPATH"]]
+                             if os.environ.get("PYTHONPATH") else [])))
+    torch.cuda.empty_cache()
+    seconds = {"dist_train": _launched(
+        [os.path.join(scripts, "dist_train.sh"), CONFIG, "1", "--synthetic",
+         "--max-epochs", "1", "--work-dir", work, "--cfg-options",
+         f"data.n_synthetic={LAUNCH_IMAGES}", "evaluation=None",
+         "log_config.interval=1"],
+        dict(env, SMOKE_K1_REPORT=reports["train"]),
+        os.path.join(tmp, "dist_train.log"))}
+    env["PORT"] = str(free_port())
+    seconds["dist_test"] = _launched(
+        [os.path.join(scripts, "dist_test.sh"), CONFIG,
+         os.path.join(work, "ckpts"), "1", "--synthetic", "--out",
+         os.path.join(tmp, "dist_test.json")],
+        dict(env, SMOKE_K1_REPORT=reports["test"]),
+        os.path.join(tmp, "dist_test.log"))
+    said = {}
+    for k, path in reports.items():
+        with open(f"{path}.rank0.json") as f:
+            said[k] = json.load(f)
+    with open(os.path.join(tmp, "dist_train.log")) as f:
+        train_log = f.read()
+    records = [r for r in _records(work) if r["prefix"] == "train"]
+    steps = LAUNCH_IMAGES // TRAIN_BATCH
+    with open(os.path.join(tmp, "dist_test.json")) as f:
+        metrics = json.load(f)
+    if "process 0/1; backend: nccl; device: cuda" not in train_log \
+            or said["train"]["calls"]["assign"] \
+            != [list(ASSIGN_SHAPE)] * steps \
+            or said["train"]["launches"] != steps \
+            or [r["step"] for r in records] != list(range(1, steps + 1)) \
+            or said["test"]["launches"] != LAUNCH_TEST_IMAGES \
+            or len(said["test"]["calls"]["nms"]) != LAUNCH_TEST_IMAGES \
+            or not {"AP50", "mAP"} <= set(metrics):
+        raise AssertionError(f"the launchers: {said}, {records}, {metrics}"
+                             f"\n{train_log[-2000:]}")
+    b1, b2 = torch.load(f"{reports['train']}.rank0.pt")
+    check = _bitwise_on((b1.cuda(), b2.cuda()), "study: dist_train.sh's "
+                        "child, its last assignment input", reps)
+    launches = said["train"]["launches"] + said["test"]["launches"]
+    return {"seconds": seconds,
+            "losses": [r["loss"] for r in records],
+            "test_metrics": {k: metrics[k] for k in ("AP50", "mAP")},
+            "k1_launches": {k: v["launches"] for k, v in said.items()}}, \
+        launches, check
+
+
+def phase_study(seed: int, reps: int) -> tuple[int, list]:
+    """The sphere-bench study tools, the dataset converters and the
+    launchers. (1) ``assign_audit.main`` on the committed train annotations
+    (500 images, 5 backends and the oracle, batch 8) held to the published
+    ``work_dirs/assign_audit/audit.json``: the counts of GTs and anchors,
+    each backend's positives a GT within 1 % and its flip rate within 1e-3,
+    the oracle's 0.0, the published findings; K1 63 times at (88, 24552)
+    D=4, bitwise on the last batch. (2) ``ap_study.main(["--quick"])``: the
+    six RetinaNet variants (2 epochs, 128x256) on data it writes under its
+    output; K1 once a step in ``l1`` and ``ciou`` at (192, 6138) D=4 and
+    never in the others; the report's keys the published report's, every
+    ``eval_arrays.npz`` written. (3) ``detection_diagnosis`` on those runs
+    and on a run of the val ground truth jittered into detections, on the
+    card and on the CPU. (4) The seven converters. (5)
+    ``dist_train.sh`` and ``dist_test.sh``. The committed annotations'
+    sha256 the same after the phase as before. Returns K1's launches (the
+    launchers' children's as they report them) and its checks."""
+    t_phase = time.perf_counter()
+    resolve_device()
+    before = [_sha256(p) for p in SPHERE_BENCH_ANNOTATIONS]
+    checks = []
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        audit, check = run_audit_on_card(tmp, reps)
+        checks.append(check)
+        torch.cuda.empty_cache()
+        quick, check, runs = run_quick_study(tmp, seed, reps)
+        checks.append(check)
+        quick_root = os.path.join(tmp, "ap_quick", "sphere_bench")
+        val_ann = os.path.join(quick_root, "annotations",
+                               "instances_val.json")
+        diagnosis, _ = run_diagnosis_both(
+            runs + [jittered_gt_run(runs[0], os.path.join(tmp, "jittered_gt"),
+                                    seed)], val_ann)
+        converters, seconds = _timed(lambda: run_converters(
+            tmp, val_ann, os.path.join(quick_root, "images")))
+        converters["seconds"] = seconds
+        launchers, child_launches, check = run_launchers(tmp, reps)
+        checks.append(check)
+    after = [_sha256(p) for p in SPHERE_BENCH_ANNOTATIONS]
+    if after != before:
+        raise AssertionError("the phase changed the committed sphere-bench "
+                             "annotations")
+    launches = audit["k1_launches"] + quick["k1_launches"] + child_launches
+    emit({"phase": "study", "assign_audit": audit, "ap_study_quick": quick,
+          "detection_diagnosis": diagnosis, "converters": converters,
+          "launchers": launchers,
+          "committed_annotations_sha256_unchanged": before,
+          "kernel_launches": launches, "kernel_on_inputs": checks,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches, checks
+
+
+def phase_study_full(seed: int, reps: int) -> None:
+    """``--study``: the full sphere-bench (500 / 100 images, 12 classes,
+    256x512, seed 0) written into a temporary root, both annotation files
+    byte-identical to the committed ones; the RetinaNet ``l1`` and ``ciou``
+    variants trained 24 epochs at seed 0 on the card at full width (K1 once
+    a step at (192, 24552) D=4), evaluated with unbiased matching, and
+    diagnosed on the card and on the CPU (integers equal, floats within
+    ``TOOL_TOLERANCE``); AP50, mAP, AP50 by stratum and the training seconds beside
+    the published JAX study's seed-0 figures and its range over seeds. A
+    figure below the lowest JAX seed is flagged, not failed."""
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        root = os.path.join(tmp, "sphere_bench")
+        _, write_s = _timed(lambda: _said(lambda: synth_cli.main(
+            ["--root", root])))
+        identical = [_sha256(os.path.join(root, "annotations",
+                                          os.path.basename(p)))
+                     == _sha256(p) for p in SPHERE_BENCH_ANNOTATIONS]
+        if not all(identical):
+            raise AssertionError(f"the written annotations differ from the "
+                                 f"committed ones: {identical}")
+        out = os.path.join(tmp, "study")
+        variants = [(n, o) for n, o in ap_cli.VARIANTS if n in STUDY_VARIANTS]
+        with k1_by_run() as (rec, counts):
+            report, study_s = _timed(lambda: ap_cli.run_study(
+                data_root=root, out_dir=out, seeds=[seed],
+                variants=variants))
+        want_call = list(STUDY_SHAPE)
+        for n in STUDY_VARIANTS:
+            c = counts[f"{n}_s{seed}"]["train_variant"]
+            if c["launches"] != STUDY_STEPS \
+                    or c["shapes"] != [want_call] * STUDY_STEPS:
+                raise AssertionError(f"--study {n}: {c['launches']} K1 "
+                                     f"launches")
+        check = _bitwise_on(rec["last"], "--study: the last assignment "
+                            "input (ciou)", reps)
+        val_ann = os.path.join(root, "annotations", "instances_val.json")
+        diagnosis_line, diagnosis = run_diagnosis_both(
+            [os.path.join(out, f"{n}_s{seed}") for n in STUDY_VARIANTS],
+            val_ann)
+    with open(PUBLISHED_STUDY) as f:
+        published = json.load(f)["variants"]
+    rows = {}
+    for n in STUDY_VARIANTS:
+        e = report["variants"][n]["seeds"][str(seed)]
+        jax_seeds = {s: m["AP50"] for s, m in published[n]["seeds"].items()
+                     if "AP50" in m}
+        rows[n] = {
+            "AP50": e["AP50"], "mAP": e["mAP"], "AP75": e["AP75"],
+            "strata_AP50": {k: v["AP50"] for k, v in e["strata"].items()},
+            "train_seconds": e["train_seconds"],
+            "k1_launches": counts[f"{n}_s{seed}"]["train_variant"][
+                "launches"],
+            "jax_seed0_AP50": jax_seeds.get("0"),
+            "jax_AP50_range": [min(jax_seeds.values()),
+                               max(jax_seeds.values())],
+            "jax_seeds": len(jax_seeds),
+            "below_lowest_jax_seed": e["AP50"] < min(jax_seeds.values()),
+            "diagnosis": diagnosis[f"{n}_s{seed}"]}
+    emit({"phase": "study_full", "dataset_write_seconds": write_s,
+          "annotations_byte_identical": identical,
+          "study_seconds": study_s, "variants": rows,
+          "diagnosis_seconds": diagnosis_line["seconds"],
+          "diagnosis_card_vs_cpu_max_float_gap":
+              diagnosis_line["card_vs_cpu_max_float_gap"],
+          "kernel_on_input": check,
+          "phase_seconds": time.perf_counter() - t_phase})
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5039,6 +5682,11 @@ def main(argv=None) -> int:
     p.add_argument("--assign-probe", action="store_true",
                    help="only the device line and the eager sph2pob_standard "
                         "assignment of the indoor360 config at full width")
+    p.add_argument("--study", action="store_true",
+                   help="only the device and build lines and the full "
+                        "sphere-bench study: the dataset written, the "
+                        "RetinaNet l1 and ciou variants trained 24 epochs "
+                        "and evaluated beside the published JAX study")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
@@ -5050,6 +5698,12 @@ def main(argv=None) -> int:
         emit({"phase": "assign_probe", **assign_probe(args.seed)})
         return 0
     phase_build()
+    if args.study:
+        phase_study_full(args.seed, args.reps)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}})
+        return 0
     shapes = phase_kernels(args.seed, args.reps)
     if args.fmad_probe:
         emit({"phase": "fmad_probe", **fmad_probe(args.seed, args.reps)})
@@ -5086,13 +5740,16 @@ def main(argv=None) -> int:
     launches["sph2pob_iou_pairwise"] += trained
     trained, on_measure_inputs = phase_measure(args.seed, args.reps)
     launches["sph2pob_iou_pairwise"] += trained
+    trained, on_study_inputs = phase_study(args.seed, args.reps)
+    launches["sph2pob_iou_pairwise"] += trained
     # K1 on the inputs its paths gave it, beside its seeded shapes
     shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input,
                                        on_iou_input, on_ssd_input,
                                        *on_frcnn_input, on_val_nms_input,
                                        on_input_assign, on_pretrained_assign,
                                        *on_parallel_inputs, on_robust_input,
-                                       on_demo_input, *on_measure_inputs]
+                                       on_demo_input, *on_measure_inputs,
+                                       *on_study_inputs]
     idle = [k.name for k in KERNELS if launches[k.name] < 1]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

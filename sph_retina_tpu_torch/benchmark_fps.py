@@ -4,13 +4,14 @@
         [--max-iter 200] [--warmup 5] [--with-nms] [--device cuda|cpu] \\
         [--cfg-options k=v ...]
 
-Randomly initialised weights (seed 0) and ``torch.randn`` images from a
-seeded generator on the device. Without ``--with-nms`` one call is the
-network's forward; with it, the RetinaNet predict
-(``engine/evaluator.py:make_predict_step``: top-k, decode and the greedy NMS,
-whose IoU matrix is one launch of the pairwise kernel an image whatever the
-scores). ``--warmup`` calls, then ``--max-iter`` calls ended by one
-synchronisation; prints one JSON line.
+The config's detector family (``engine/zoo.py:get_family``: RetinaNet,
+FCOS, SSD or Faster R-CNN), randomly initialised weights (seed 0) and
+``torch.randn`` images from a seeded generator on the device. Without
+``--with-nms`` one call is the network's forward; with it, the family's
+predict (``family.predict_fn``: top-k, decode and the NMS; where the NMS
+backend is ``sph2pob_efficient`` its IoU matrix is one launch of the
+pairwise kernel an image whatever the scores). ``--warmup`` calls, then
+``--max-iter`` calls ended by one synchronisation; prints one JSON line.
 """
 
 from __future__ import annotations
@@ -22,8 +23,7 @@ import time
 
 import torch
 
-from .engine.builder import build_detector_config, build_model
-from .engine.evaluator import make_predict_step
+from .engine.zoo import get_family
 from .utils.config import apply_overrides, load_config
 from .utils.device import resolve_device, synchronize
 
@@ -46,8 +46,8 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = apply_overrides(load_config(args.config), args.cfg_options)
-    det_cfg = build_detector_config(cfg)
-    model = build_model(cfg)
+    family = get_family(cfg)
+    model, det_cfg = family.build(cfg)
     model.init_weights(torch.Generator().manual_seed(0))
     model = model.to(device).eval()
     h, w = cfg.get("img_size", (512, 1024))
@@ -56,7 +56,7 @@ def main(argv=None) -> int:
     images = torch.randn((b, h, w, 3), device=device, generator=gen)
 
     if args.with_nms:
-        predict = make_predict_step(model, det_cfg)
+        predict = family.predict_fn(model, det_cfg)
         run = lambda: predict(images)  # noqa: E731
     else:
         def run():

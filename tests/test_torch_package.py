@@ -71,7 +71,10 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
         "visualize/camera", "visualize/kent_vis", "optimize_anchors",
         "image_demo", "browse_dataset", "vis_kent", "create_result_gif",
         "analyze_logs", "print_config", "get_flops", "benchmark_fps",
-        "profile_step", "mfu_experiment", "bench_host_pipeline")} <= names
+        "profile_step", "mfu_experiment", "bench_host_pipeline",
+        "synth_dataset", "assign_audit", "ap_study", "detection_diagnosis",
+        "chart_util", "convert_anno", "images2coco", "get_image_metas",
+        "split_coco", "pascal_voc", "cityscapes")} <= names
     for path in files:
         bad = _imported_roots(path) & FORBIDDEN
         assert not bad, f"{os.path.relpath(path, REPO)} imports {sorted(bad)}"

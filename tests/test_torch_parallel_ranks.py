@@ -438,3 +438,61 @@ def test_test_cli_at_two_ranks_gives_one_process_metrics(ranks):
         assert two[k] == pytest.approx(one[k], abs=1e-6), k
     said = ranks["jobs"]["two_epochs"].said(1)
     assert "mAP" not in said  # only rank 0 prints the metrics
+
+
+SCRIPTS = os.path.join(REPO, "sph_retina_tpu_torch", "scripts")
+
+
+@pytest.mark.parametrize("name", ["dist_test.sh", "dist_train.sh",
+                                  "dist_train_det.sh", "slurm_test.sh",
+                                  "slurm_train.sh"])
+def test_launcher_script_parses(name):
+    path = os.path.join(SCRIPTS, name)
+    assert os.access(path, os.X_OK)
+    subprocess.run(["bash", "-n", path], check=True, timeout=WAIT_S)
+
+
+def test_dist_train_script_takes_a_step_on_the_cpu(tmp_path):
+    """``scripts/dist_train.sh CONFIG 1 --synthetic --device cpu``: torchrun
+    starts one gloo rank of ``train.py --launcher torch``, which takes one
+    step at 64x128 and writes its checkpoint, within ``WAIT_S``. The child
+    finds ``torch.utils.tensorboard`` unimportable (a ``sitecustomize`` on
+    its path): it imports TensorFlow where that is installed."""
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(
+        "import sys\nsys.modules['torch.utils.tensorboard'] = None\n")
+    cfg = tmp_path / "tiny.py"
+    cfg.write_text(TINY_CFG)
+    work = tmp_path / "work"
+    env = dict(os.environ, PORT=str(_free_port()), PYTHON=sys.executable,
+               PYTHONPATH=os.pathsep.join(
+                   [str(site)] + ([os.environ["PYTHONPATH"]]
+                                  if os.environ.get("PYTHONPATH") else [])))
+    proc = subprocess.Popen(
+        [os.path.join(SCRIPTS, "dist_train.sh"), str(cfg), "1",
+         "--synthetic", "--device", "cpu", "--work-dir", str(work),
+         "--cfg-options", "data.n_synthetic=2", "evaluation=None"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        said, _ = proc.communicate(timeout=WAIT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        said, _ = proc.communicate()
+        pytest.fail(f"dist_train.sh ran past {WAIT_S} s:\n{said[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+    try:
+        assert proc.returncode == 0, said[-3000:]
+        assert "process 0/1; backend: gloo; device: cpu" in said
+        records = [json.loads(line) for line in
+                   (work / "metrics.jsonl").read_text().splitlines()]
+        steps = [r for r in records if r["prefix"] == "train"]
+        assert [r["step"] for r in steps] == [1]
+        assert np.isfinite(steps[0]["loss"])
+        assert (work / "ckpts" / "latest.txt").read_text().strip() \
+            == "epoch_1"
+    finally:
+        shutil.rmtree(tmp_path, ignore_errors=True)
