@@ -38,7 +38,8 @@ matplotlib); the measurement tools (``print_config``, ``get_flops``,
 on, ``mfu_experiment``, ``bench_host_pipeline``); the sphere-bench study
 tools (``assign_audit`` on the committed annotations against the published
 audit, ``ap_study --quick``, ``detection_diagnosis``), the dataset
-converters and the torchrun launchers; and the IoU tool
+converters and the torchrun launchers; ``parallel/sharding.py`` (FSDP, the
+width-sharded "space" axis, the row-sharded overlaps); and the IoU tool
 (``benchmark_iou.main``, the kernel and the other backends) — and holds
 every CUDA kernel of those paths against its plain PyTorch version on the
 card.
@@ -213,7 +214,26 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             at (256, 98208) D=5 as the child reports it, bitwise on its
             last input) and ``scripts/dist_test.sh`` on its checkpoint (K1
             once a val image); the committed annotations' sha256 unchanged
-23. the kernels' summary line, then the last line
+23. sharding  ``parallel/sharding.py`` on the rotated config at full width:
+            (a) ``shard_state_fsdp`` at world 1 over NCCL (a (1, 1) mesh),
+            4 steps at batch 4 against one process without a group of the
+            same seed (the largest parameter gap, within
+            ``PARALLEL_TOLERANCE``; K1 once a step at (256, 98208) D=5);
+            then two ranks sharing the card over gloo, processes of their
+            own (deadline ``SHARDING_CHILD_S``): (b) FSDP over data 2, 2
+            steps at batch 2 a rank in fp32 (TF32 off), the update within
+            ``PARALLEL_TOLERANCE`` of one process's at batch 4 on the same
+            images, each rank's bytes of parameters, momentum and EMA beside
+            the unsharded bytes, rank 0's checkpoint loaded into a model of
+            one process equal to the gathered parameters; (c) data 1 x
+            space 2, 2 steps at batch 2: each step's loss within 1e-4 of
+            one process's, the update within ``PARALLEL_TOLERANCE``, K1
+            once a step a rank at (128, 98208) D=5, bitwise on its last
+            input; (d) ``sharded_pairwise_overlaps`` of the config's 98 208
+            anchors against 256 seeded boxes over the two ranks, within
+            rtol 1e-5 / atol 1e-6 of the unsharded ``sph_overlaps``, each
+            rank's ms
+24. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
 Weights are random, made from ``--seed``; no number printed here says
@@ -230,6 +250,7 @@ import ctypes
 import dataclasses
 import hashlib
 import io
+import itertools
 import json
 import math
 import os
@@ -278,6 +299,7 @@ from sph_retina_tpu_torch import images2coco as images_cli
 from sph_retina_tpu_torch import mfu_experiment as mfu_cli
 from sph_retina_tpu_torch import occluded_recall as recall_cli
 from sph_retina_tpu_torch import optimize_anchors as anchors_cli
+from sph_retina_tpu_torch import parallel
 from sph_retina_tpu_torch import pascal_voc as voc_cli
 from sph_retina_tpu_torch import print_config as config_cli
 from sph_retina_tpu_torch import profile_step as profile_cli
@@ -305,7 +327,8 @@ from sph_retina_tpu_torch.engine.analysis import (
 )
 from sph_retina_tpu_torch.engine.builder import build_datasets, build_tx
 from sph_retina_tpu_torch.engine.eval import eval_spherical_map
-from sph_retina_tpu_torch.engine.zoo import get_family
+from sph_retina_tpu_torch.engine.zoo import get_family, make_generic_train_step
+from sph_retina_tpu_torch.geometry import generate_boxes
 from sph_retina_tpu_torch.data import (
     DataLoader,
     PinnedStaging,
@@ -4030,11 +4053,14 @@ def _update_gap(got: dict, want: dict, start: dict) -> float:
     return num / den
 
 
-def _ranks_of_one_card(argv: list, tmp: str) -> list:
-    """Phase (b)'s two ranks, as processes of their own on card 0; each
-    logs to a file (a pipe nobody reads can block a rank, and its peer with
-    it); both killed at the deadline or when one fails. Returns each
-    rank's JSON line and its log."""
+def _ranks_of_one_card(argv: list, tmp: str, child: str = PARALLEL_CHILD,
+                       deadline_s: float = PARALLEL_CHILD_S) -> list:
+    """Two ranks running ``child ARGV_JSON OUT TIMEOUT_S`` (phase
+    ``parallel`` (b)'s by default; ``OUT`` the rank's K1 input file in
+    ``tmp``), as processes of their own on card 0; each logs to a file (a
+    pipe nobody reads can block a rank, and its peer with it); both killed
+    at the deadline or when one fails. Returns each rank's JSON line and
+    its log."""
     port, procs, logs = free_port(), [], []
     try:
         for rank in range(2):
@@ -4044,11 +4070,11 @@ def _ranks_of_one_card(argv: list, tmp: str) -> list:
             logs.append(os.path.join(tmp, f"rank{rank}.log"))
             with open(logs[-1], "w") as log:
                 procs.append(subprocess.Popen(
-                    [sys.executable, "-c", PARALLEL_CHILD, json.dumps(argv),
+                    [sys.executable, "-c", child, json.dumps(argv),
                      os.path.join(tmp, f"k1_input_rank{rank}.pt"),
-                     str(PARALLEL_CHILD_S)],
+                     str(deadline_s)],
                     cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
-        deadline = time.monotonic() + PARALLEL_CHILD_S
+        deadline = time.monotonic() + deadline_s
         while any(p.poll() is None for p in procs):
             if time.monotonic() > deadline or any(
                     p.poll() not in (None, 0) for p in procs):
@@ -4066,7 +4092,7 @@ def _ranks_of_one_card(argv: list, tmp: str) -> list:
     if any(p.returncode != 0 for p in procs):
         raise AssertionError(
             f"the two ranks ended with {[p.returncode for p in procs]} "
-            f"(deadline {PARALLEL_CHILD_S} s):\n"
+            f"(deadline {deadline_s} s):\n"
             + "\n".join(s[-3000:] for s in said))
     return [(json.loads(s.strip().splitlines()[-1]), s) for s in said]
 
@@ -5670,6 +5696,367 @@ def phase_study_full(seed: int, reps: int) -> None:
           "phase_seconds": time.perf_counter() - t_phase})
 
 
+SHARDING_STEPS = 4          # (a): batch 4 at world 1 over NCCL
+SHARDING_RANK_STEPS = 2     # (b), (c): 2 steps of the two gloo ranks
+SHARDING_FSDP_BATCH = 4     # (b): the global batch, 2 images a rank
+SHARDING_SPACE_BATCH = 2    # (c): each space rank the whole 2, half width
+SHARDING_CHILD_S = 300.0    # (b)-(d): each rank's deadline
+SHARDING_SHAPE = (128, 98208, 5)  # (b), (c): each rank's 2 images x max_gt 64
+SHARDING_LOSS_RTOL = 1e-4   # (c): tests/test_sharding.py's tolerance
+SHARDING_NECK_WIDTHS = [128, 64, 32, 16, 8]  # (c): P3-P7 at 1024, all split
+OVERLAP_BOXES = 256         # (d): seeded boxes against the config's anchors
+OVERLAP_TOLERANCE = {"rtol": 1e-5, "atol": 1e-6}  # (d): the JAX test's
+
+# The ranks of phase (b)-(d), run as ``python -c SHARDING_CHILD SPEC_JSON
+# K1_INPUT_FILE TIMEOUT_S`` (``_ranks_of_one_card``): K1 recorded, then
+# ``sharding_child`` writing beside that file. Prints one JSON line.
+SHARDING_CHILD = r'''
+import json, os, sys
+sys.modules["torch.utils.tensorboard"] = None
+''' + K1_CHILD_RECORDER + r'''
+import chip_smoke
+spec, out, timeout_s = json.loads(sys.argv[1]), sys.argv[2], float(sys.argv[3])
+print(json.dumps(chip_smoke.sharding_child(spec, os.path.dirname(out),
+                                           timeout_s, calls, last)),
+      flush=True)
+'''
+
+
+def _state_bytes(model, optimizer) -> int:
+    """Bytes this process holds of parameters, momentum buffers and EMA
+    shadows."""
+    tensors = list(model.parameters()) + optimizer.bufs + (optimizer.ema
+                                                           or [])
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def sharded_training(cfg: dict, seed: int, device, steps: int, mesh=None,
+                     fsdp: bool = False) -> dict:
+    """``steps`` train steps of ``cfg``'s model on its synthetic set, the
+    config's ``samples_per_gpu`` being the global batch: as one process
+    (``mesh`` None), or this rank's part of each batch
+    (``shard_batch_spatial``) with the model partitioned over ``mesh``'s
+    space axis and, with ``fsdp``, its state sharded over the data axis.
+    Returns the model, its detector config and optimiser, each step's
+    metrics (summed over the data group) and ms (host clock, synchronised),
+    and the bytes of state held before and after the sharding."""
+    family = get_family(cfg)
+    loader, _ = train_cli.synthetic_loaders(cfg, seed)
+    model, det_cfg = family.build(cfg)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    model = model.to(device)
+    optimizer = build_tx(cfg, model, steps_per_epoch=len(loader))
+    whole = _state_bytes(model, optimizer)
+    if mesh is not None:
+        parallel.partition_spatially(model, mesh)
+        if fsdp:
+            parallel.shard_state_fsdp(model, optimizer, mesh)
+    step = make_generic_train_step(family, model, det_cfg, optimizer,
+                                   seed=seed)
+    metrics, step_ms = [], []
+    for batch in itertools.islice(loader.epoch(0), steps):
+        batch = to_device({k: v for k, v in batch.items() if k != "img_id"},
+                          device)
+        if mesh is not None:
+            batch = parallel.shard_batch_spatial(batch, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = parallel.global_metrics(step(batch))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in got.items()})
+    if len(metrics) != steps or not all(
+            math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"{len(metrics)} steps, metrics {metrics}")
+    return {"model": model, "det_cfg": det_cfg, "optimizer": optimizer,
+            "metrics": metrics, "step_ms": step_ms, "whole_bytes": whole,
+            "local_bytes": _state_bytes(model, optimizer)}
+
+
+def _sharding_cfg(batch: int, steps: int, options=PARALLEL_OPTIONS) -> dict:
+    return apply_overrides(load_config(CONFIG), [
+        f"data.samples_per_gpu={batch}", f"data.n_synthetic={batch * steps}",
+        *options])
+
+
+def sharding_child(spec: dict, out: str, timeout_s: float, calls: dict,
+                   last: dict) -> dict:
+    """One of the two gloo ranks of phase ``sharding``: (b) FSDP over data
+    2, (c) data 1 x space 2, (d) the row-sharded overlaps. Writes rank 0's
+    gathered parameters, its checkpoint and each rank's last assignment
+    input under ``out``; returns what the phase reads."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    device, seed = torch.device(spec["device"]), spec["seed"]
+    rank, world = parallel.init_distributed(
+        "torch", backend="gloo", timeout_s=timeout_s, device=device)
+    report = {"rank": rank, "world": world,
+              "backend": torch.distributed.get_backend()}
+    try:
+        for part, space, batch in (("b", 1, SHARDING_FSDP_BATCH),
+                                   ("c", 2, SHARDING_SPACE_BATCH)):
+            parallel.set_data_axis()
+            mesh = parallel.make_mesh(space=space)
+            calls["assign"].clear()
+            sph2pob_iou_pairwise.launches = 0
+            run = sharded_training(_sharding_cfg(batch, SHARDING_RANK_STEPS),
+                                   seed, device, SHARDING_RANK_STEPS, mesh,
+                                   fsdp=part == "b")
+            torch.cuda.synchronize()
+            launches = sph2pob_iou_pairwise.launches
+            model, optimizer = run["model"], run["optimizer"]
+            if part == "b":
+                runner.RankZeroCheckpointer(os.path.join(out, "b_ckpt")) \
+                    .save(model, optimizer, 1)
+            params = model.state_dict()  # gathered: every rank calls it
+            if rank == 0:
+                torch.save({k: v.cpu() for k, v in params.items()},
+                           os.path.join(out, f"{part}_params.pt"))
+            torch.save(last["input"], os.path.join(
+                out, f"{part}_k1_input_rank{rank}.pt"))
+            axis = getattr(model, "space_axis", None)
+            report[part] = {
+                "metrics": run["metrics"], "step_ms": run["step_ms"],
+                "state_bytes": run["local_bytes"],
+                "unsharded_state_bytes": run["whole_bytes"],
+                "sharded_tensors": sum(hasattr(p, "fsdp")
+                                       for p in model.parameters()),
+                "neck_widths": None if axis is None else [
+                    g for k, g in axis.plan.items()
+                    if isinstance(k, tuple) and k[0] == "out"],
+                "launches": launches, "assign_calls": list(calls["assign"])}
+            del run, model, optimizer, params
+            torch.cuda.empty_cache()
+        parallel.set_data_axis()
+        mesh = parallel.make_mesh()
+        cfg = load_config(CONFIG)
+        anchors = get_family(cfg).build(cfg)[1].flat_anchors(device)
+        boxes = torch.from_numpy(generate_boxes(OVERLAP_BOXES, 5,
+                                                seed=seed)).to(device)
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = parallel.sharded_pairwise_overlaps(anchors, boxes, mesh)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        report["d"] = {"shape": list(got.shape), "ms": ms}
+        if rank == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = sph_overlaps(anchors, boxes, "sph2pob_efficient",
+                                is_aligned=False)
+            torch.cuda.synchronize()
+            report["d"].update(
+                unsharded_ms=(time.perf_counter() - t0) * 1e3,
+                max_abs_gap=float((got - want).abs().max()),
+                within_tolerance=bool(torch.allclose(got, want,
+                                                     **OVERLAP_TOLERANCE)),
+                finite=bool(torch.isfinite(got).all()))
+        parallel.coordination_barrier("done", timeout_s=timeout_s)
+    finally:
+        parallel.set_data_axis()
+        torch.distributed.destroy_process_group()
+    return report
+
+
+def _param_gap(got: dict, want: dict) -> float:
+    """max|got - want| over the floating tensors."""
+    return max(float((got[k].float() - v.float()).abs().max())
+               for k, v in want.items() if v.is_floating_point())
+
+
+def phase_sharding(seed: int, reps: int, smi: str) -> tuple[int, list]:
+    """``parallel/sharding.py`` on the rotated config at full width (see the
+    module docstring, phase 23). Returns K1's launches and its checks on the
+    assignment inputs of (a) and of (c)'s rank 0."""
+    device = resolve_device()
+    t_phase = time.perf_counter()
+    seconds, checks, launches = {}, [], 0
+    calls, real = [], single_stage.sph2pob_iou_pairwise
+    kept = {}
+
+    def recording(boxes1, boxes2):
+        kept["input"] = (boxes1.clone(), boxes2.clone())
+        return _recording(real, calls)(boxes1, boxes2)
+
+    # (a) world 1 over NCCL against one process without a group
+    cfg = load_config(CONFIG)
+    single_stage.sph2pob_iou_pairwise = recording
+    try:
+        runs = {}
+        for kind in ("none", "nccl"):
+            sph2pob_iou_pairwise.launches = 0
+            t0 = time.perf_counter()
+            if kind == "none":
+                runs[kind] = sharded_training(cfg, seed, device,
+                                              SHARDING_STEPS)
+            else:
+                with torchrun_environment(0, 1, free_port()), \
+                        parallel.process_group("torch", device) as (_, world):
+                    backend = torch.distributed.get_backend()
+                    mesh = parallel.make_mesh()
+                    runs[kind] = sharded_training(cfg, seed, device,
+                                                  SHARDING_STEPS, mesh,
+                                                  fsdp=True)
+                    runs[kind]["params"] = {
+                        k: v.detach().cpu() for k, v in
+                        runs[kind]["model"].state_dict().items()}
+            torch.cuda.synchronize()
+            runs[kind]["launches"] = sph2pob_iou_pairwise.launches
+            seconds[f"a_{kind}"] = time.perf_counter() - t0
+    finally:
+        single_stage.sph2pob_iou_pairwise = real
+    if torch.distributed.is_initialized():
+        raise AssertionError("phase (a) left its process group open")
+    none, nccl = runs["none"], runs["nccl"]
+    assert_full_width_training(cfg, nccl["model"], nccl["det_cfg"],
+                               nccl["optimizer"], device)
+    want = {k: v.detach().cpu() for k, v in
+            none["model"].state_dict().items()}
+    start = get_family(cfg).build(cfg)[0]
+    start.init_weights(torch.Generator().manual_seed(seed))
+    gap_a = _update_gap(nccl["params"], want, start.state_dict())
+    max_gap_a = _param_gap(nccl["params"], want)
+    if not gap_a <= PARALLEL_TOLERANCE:
+        raise AssertionError(f"(a): the update is {gap_a} from one "
+                             f"process's (tolerance {PARALLEL_TOLERANCE})")
+    want_call = [list(ASSIGN_SHAPE[::2]), list(ASSIGN_SHAPE[1:])]
+    if calls != [want_call] * (2 * SHARDING_STEPS) or any(
+            r["launches"] != SHARDING_STEPS for r in runs.values()):
+        raise AssertionError(f"(a): K1 was called at {calls}")
+    launches += none["launches"] + nccl["launches"]
+    checks.append({"input": "sharding (a): the last assignment input at "
+                            "world 1 over NCCL",
+                   **check_kernel(KERNELS[0], *kept["input"], reps,
+                                  identical=False)})
+    a = {"backend": backend, "world": world, "update_gap": gap_a,
+         "max_abs_param_gap": max_gap_a, "tolerance": PARALLEL_TOLERANCE,
+         "sharded_tensors": sum(hasattr(p, "fsdp")
+                                for p in nccl["model"].parameters()),
+         "losses": {k: [m["loss"] for m in r["metrics"]]
+                    for k, r in runs.items()},
+         "step_ms": {k: r["step_ms"] for k, r in runs.items()},
+         "kernel_launches": {k: r["launches"] for k, r in runs.items()}}
+    del runs, none, nccl, want, start
+    torch.cuda.empty_cache()
+
+    # the one-process references of (b) and (c), fp32 with TF32 off
+    torch.backends.cudnn.deterministic = True
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    refs = {}
+    try:
+        for part, batch in (("b", SHARDING_FSDP_BATCH),
+                            ("c", SHARDING_SPACE_BATCH)):
+            sph2pob_iou_pairwise.launches = 0
+            t0 = time.perf_counter()
+            run = sharded_training(_sharding_cfg(batch, SHARDING_RANK_STEPS),
+                                   seed, device, SHARDING_RANK_STEPS)
+            torch.cuda.synchronize()
+            seconds[f"{part}_one_process"] = time.perf_counter() - t0
+            launches += sph2pob_iou_pairwise.launches
+            refs[part] = {"metrics": run["metrics"], "step_ms":
+                          run["step_ms"], "params": {
+                              k: v.detach().cpu() for k, v in
+                              run["model"].state_dict().items()}}
+            del run
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    cfg = _sharding_cfg(SHARDING_FSDP_BATCH, SHARDING_RANK_STEPS)
+    start = get_family(cfg).build(cfg)[0]
+    start.init_weights(torch.Generator().manual_seed(seed))
+    theta0 = start.state_dict()
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        t0 = time.perf_counter()
+        ranks = _ranks_of_one_card({"seed": seed, "device": device.type},
+                                   tmp, child=SHARDING_CHILD,
+                                   deadline_s=SHARDING_CHILD_S)
+        seconds["bcd_two_ranks"] = time.perf_counter() - t0
+        (r0, _), (r1, _) = ranks
+        for r, said in ranks:
+            if r["backend"] != "gloo" or r["world"] != 2:
+                raise AssertionError(f"rank {r['rank']} said {said[-2000:]}")
+            for part in ("b", "c"):
+                if r[part]["assign_calls"] != [list(SHARDING_SHAPE)] \
+                        * SHARDING_RANK_STEPS \
+                        or r[part]["launches"] != SHARDING_RANK_STEPS:
+                    raise AssertionError(
+                        f"rank {r['rank']} ({part}): {r[part]['launches']} "
+                        f"K1 launches, calls {r[part]['assign_calls']}")
+                launches += r[part]["launches"]
+        result = {}
+        for part in ("b", "c"):
+            got = torch.load(os.path.join(tmp, f"{part}_params.pt"))
+            gap = _update_gap(got, refs[part]["params"], theta0)
+            if not gap <= PARALLEL_TOLERANCE:
+                raise AssertionError(
+                    f"({part}): the two ranks' update is {gap} from one "
+                    f"process's (tolerance {PARALLEL_TOLERANCE})")
+            result[part] = {"update_gap": gap,
+                            "losses": [m["loss"] for m in r0[part]
+                                       ["metrics"]],
+                            "one_process_losses": [
+                                m["loss"] for m in refs[part]["metrics"]],
+                            "step_ms": {"rank0": r0[part]["step_ms"],
+                                        "rank1": r1[part]["step_ms"],
+                                        "one_process":
+                                            refs[part]["step_ms"]},
+                            "sharded_tensors": r0[part]["sharded_tensors"]}
+        # (b): each rank holds a part of the state; the checkpoint is whole
+        if r0["b"]["sharded_tensors"] == 0 or not all(
+                r["b"]["state_bytes"] < r["b"]["unsharded_state_bytes"]
+                for r, _ in ranks):
+            raise AssertionError(f"(b) sharded nothing: {r0['b']}")
+        fresh = get_family(cfg).build(cfg)[0].to(device)
+        runner.load_checkpoint(os.path.join(tmp, "b_ckpt"), fresh)
+        got = torch.load(os.path.join(tmp, "b_params.pt"))
+        if not all(torch.equal(v.cpu(), got[k])
+                   for k, v in fresh.state_dict().items()):
+            raise AssertionError("(b): rank 0's checkpoint does not load "
+                                 "into one process as the gathered "
+                                 "parameters")
+        result["b"].update(
+            state_bytes={f"rank{r['rank']}": r["b"]["state_bytes"]
+                         for r, _ in ranks},
+            unsharded_state_bytes=r0["b"]["unsharded_state_bytes"],
+            checkpoint_loads_into_one_process=True)
+        # (c): the loss of every step, and K1 on rank 0's last input
+        for got, want in zip(result["c"]["losses"],
+                             result["c"]["one_process_losses"]):
+            if not abs(got - want) <= SHARDING_LOSS_RTOL * abs(want):
+                raise AssertionError(
+                    f"(c): loss {got} against one process's {want}")
+        if r0["c"]["neck_widths"] != SHARDING_NECK_WIDTHS:
+            raise AssertionError(f"(c): neck {r0['c']['neck_widths']}")
+        result["c"]["neck_widths"] = r0["c"]["neck_widths"]
+        b1, b2 = torch.load(os.path.join(tmp, "c_k1_input_rank0.pt"))
+        checks.append({"input": "sharding (c): rank 0's last assignment "
+                                "input, data 1 x space 2",
+                       **check_kernel(KERNELS[0], b1.to(device),
+                                      b2.to(device), reps, identical=False)})
+    d = r0["d"]
+    if d["shape"] != [ASSIGN_SHAPE[1], OVERLAP_BOXES] or not (
+            d["within_tolerance"] and d["finite"]):
+        raise AssertionError(f"(d): {d}")
+    d["rank1_ms"] = r1["d"]["ms"]
+    for c in checks:
+        if not c["bitwise_equal"]:
+            raise AssertionError(f"K1 differs from its plain version on "
+                                 f"{c['input']}: {c['max_abs_err']}")
+    seconds["phase"] = time.perf_counter() - t_phase
+    emit({"phase": "sharding", "config": os.path.relpath(CONFIG, ROOT),
+          "card": smi, "seconds": seconds, "a_world1_nccl_fsdp": a,
+          "b_fsdp_two_gloo_ranks": result["b"],
+          "c_space_two_gloo_ranks": result["c"],
+          "d_sharded_overlaps": d, "kernel_launches": launches,
+          "kernel_on_assignment_inputs": checks})
+    return launches, checks
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -5742,6 +6129,8 @@ def main(argv=None) -> int:
     launches["sph2pob_iou_pairwise"] += trained
     trained, on_study_inputs = phase_study(args.seed, args.reps)
     launches["sph2pob_iou_pairwise"] += trained
+    trained, on_sharding_inputs = phase_sharding(args.seed, args.reps, smi)
+    launches["sph2pob_iou_pairwise"] += trained
     # K1 on the inputs its paths gave it, beside its seeded shapes
     shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input,
                                        on_iou_input, on_ssd_input,
@@ -5749,7 +6138,7 @@ def main(argv=None) -> int:
                                        on_input_assign, on_pretrained_assign,
                                        *on_parallel_inputs, on_robust_input,
                                        on_demo_input, *on_measure_inputs,
-                                       *on_study_inputs]
+                                       *on_study_inputs, *on_sharding_inputs]
     idle = [k.name for k in KERNELS if launches[k.name] < 1]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

@@ -152,6 +152,15 @@ class Checkpointer:
         pointer at the previous checkpoint. Returns the path. ``generators``:
         every rank's generator state, in rank order, where several
         processes train (``generator`` is then rank 0's)."""
+        return self.write(self.contents(model, optimizer, epoch, generator,
+                                        generators), epoch, metric)
+
+    @staticmethod
+    def contents(model, optimizer, epoch: int,
+                 generator: torch.Generator | None = None,
+                 generators: list | None = None) -> dict:
+        """The checkpoint dict: the model's and the optimiser's whole state
+        (a sharded state gathers: every rank calls this alike)."""
         ckpt = {
             "format": CHECKPOINT_FORMAT,
             "step": optimizer.count,
@@ -162,6 +171,12 @@ class Checkpointer:
         }
         if generators is not None:
             ckpt["generators"] = generators
+        return ckpt
+
+    def write(self, ckpt: dict, epoch: int, metric: float | None = None
+              ) -> str:
+        """Write ``contents``' dict as ``epoch_{epoch}`` (and ``best``),
+        then advance ``latest.txt``; returns the path."""
         path = os.path.join(self.dir, f"epoch_{epoch}")
         _write_atomically(path, lambda tmp: torch.save(ckpt, tmp))
 
@@ -213,19 +228,22 @@ class Checkpointer:
 class RankZeroCheckpointer(Checkpointer):
     """Checkpoints of several processes that train alike: every rank calls
     ``save`` and ``restore`` at the same points. ``save`` gathers every
-    rank's generator state to rank 0, which alone writes; a barrier follows,
-    so no rank goes on before the file is whole. ``restore`` lines the ranks
-    up, then every rank reads the same file (a file system all ranks see,
-    as the work directory is) and takes its own generator state."""
+    rank's generator state to rank 0, every rank takes the state dicts (a
+    sharded state gathers its slices), rank 0 alone writes; a barrier
+    follows, so no rank goes on before the file is whole. ``restore`` lines
+    the ranks up, then every rank reads the same file (a file system all
+    ranks see, as the work directory is) and takes its own generator
+    state."""
 
     def save(self, model, optimizer, epoch: int, metric: float | None = None,
              generator: torch.Generator | None = None) -> str:
         states = all_gather_objects(
             None if generator is None else generator.get_state())
         path = os.path.join(self.dir, f"epoch_{epoch}")
+        ckpt = self.contents(model, optimizer, epoch, generator,
+                             None if generator is None else states)
         if get_rank() == 0:
-            super().save(model, optimizer, epoch, metric, generator,
-                         generators=None if generator is None else states)
+            self.write(ckpt, epoch, metric)
         coordination_barrier("ckpt_save")
         return path
 

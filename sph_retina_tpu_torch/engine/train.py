@@ -24,7 +24,8 @@ import torch
 from torch import nn
 
 from ..data.pipeline import maybe_normalize_images
-from ..parallel import all_reduce_gradients
+from ..parallel import all_reduce_gradients, loss_replicas
+from ..parallel.sharding import full_tensors, global_norm, local_shards
 
 
 def step_lr_schedule(
@@ -82,6 +83,11 @@ class SGDOptimizer:
     ``requires_grad_(False)`` at construction and are never touched. With
     ``ema_momentum`` the shadow parameters follow the post-update values by
     the mmcv convention ``ema += m * (p - ema)``, frozen ones included.
+
+    Under ``parallel.sharding.shard_state_fsdp`` a sharded parameter, its
+    gradient, its momentum buffer and its EMA shadow are this rank's slices:
+    the update is elementwise, the clip's norm is that of the whole gradient
+    (``global_norm``), and ``state_dict`` gathers whole tensors.
     """
 
     def __init__(self, model: nn.Module, schedule: Callable[[int], float],
@@ -126,8 +132,7 @@ class SGDOptimizer:
         grads = [p.grad for p in self.params]
         lr = self.last_lr = self.schedule(self.count)
         if self.grad_clip is not None:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            norm = global_norm(self.params, grads)
             scale = torch.where(norm < self.grad_clip, 1.0,
                                 self.grad_clip / norm)
             torch._foreach_mul_(grads, scale)
@@ -147,10 +152,27 @@ class SGDOptimizer:
 
     def state_dict(self) -> dict:
         """The step count, the momentum buffers and the EMA shadow by
-        parameter name (the tensors themselves, not copies)."""
+        parameter name, whole (the tensors themselves, not copies, where a
+        parameter is not sharded; gathered ones where it is)."""
         return {"count": self.count,
-                "momentum_buffers": dict(zip(self.names, self.bufs)),
-                "ema": self.ema_state_dict()}
+                "momentum_buffers": dict(zip(self.names, full_tensors(
+                    self.bufs, self.params))),
+                "ema": None if self.ema is None else dict(zip(
+                    self._all_names, full_tensors(self.ema,
+                                                  self._all_params)))}
+
+    @torch.no_grad()
+    def reshard(self, model: nn.Module) -> None:
+        """Re-read the parameters by name, after ``parallel.sharding.
+        shard_state_fsdp`` replaced sharded ones by their slices, and cut
+        each momentum buffer and EMA shadow that is still whole to its
+        parameter's slice."""
+        params = dict(model.named_parameters())
+        self.params = [params[n] for n in self.names]
+        self._all_params = [params[n] for n in self._all_names]
+        self.bufs = local_shards(self.bufs, self.params)
+        if self.ema is not None:
+            self.ema = local_shards(self.ema, self._all_params)
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
@@ -169,9 +191,11 @@ class SGDOptimizer:
                 f"shadow, the optimiser {'has' if ema is None else 'has none'}")
         if ema is not None and list(ema) != self._all_names:
             raise KeyError("the EMA shadow does not fit the model")
-        torch._foreach_copy_(self.bufs, [bufs[n] for n in self.names])
+        torch._foreach_copy_(self.bufs, local_shards(
+            [bufs[n] for n in self.names], self.params))
         if ema is not None:
-            torch._foreach_copy_(self.ema, [ema[n] for n in self._all_names])
+            torch._foreach_copy_(self.ema, local_shards(
+                [ema[n] for n in self._all_names], self._all_params))
         self.count = int(state["count"])
 
 
@@ -231,10 +255,15 @@ def run_step(optimizer: SGDOptimizer, compute: Callable[[], tuple]) -> dict:
     JAX package's global-batch step). The model is not wrapped in
     ``DistributedDataParallel``: Faster R-CNN's RoI head and OHEM's forward
     run outside ``model(...)``, frozen parameters have no gradient, and the
-    module's names stay those a checkpoint of one process has."""
+    module's names stay those a checkpoint of one process has. Where several
+    ranks compute the same loss (a "space" axis), each backpropagates its
+    share, ``total / loss_replicas()``; parameters sharded by
+    ``shard_state_fsdp`` had their gradients reduce-scattered in the
+    backward pass, and ``all_reduce_gradients`` leaves them out."""
     optimizer.zero_grad()
     total, losses = compute()
-    total.backward()
+    replicas = loss_replicas()
+    (total if replicas == 1 else total / replicas).backward()
     all_reduce_gradients(optimizer.params)
     optimizer.step()
     return {"loss": total.detach(),

@@ -24,7 +24,7 @@ from ..models import faster_rcnn as frcnn
 from ..models.fcos import SphFCOS, fcos_config, fcos_loss, fcos_predict
 from ..models.single_stage import retina_loss, retina_predict
 from ..models.ssd import SphSSD, ssd_config, ssd_loss, ssd_predict
-from ..parallel import get_rank
+from ..parallel import get_data_rank
 from .train import SGDOptimizer, run_step, total_loss
 
 
@@ -311,14 +311,17 @@ def make_generic_train_step(family, model, cfg, optimizer: SGDOptimizer,
                             seed: int = 0):
     """Train step serving every family: ``train_step(batch) -> metrics`` on
     a batch that lies on the model's device; the model and the optimiser are
-    updated in place. The generator, seeded from ``seed + rank`` (so that
-    ranks draw independently for their different images), is what a family
-    that samples draws from (Faster R-CNN's RoI sampler); the single-stage
+    updated in place. The generator, seeded from ``seed`` plus the rank in
+    the data group (so that ranks draw independently for their different
+    images, and the ranks of a "space" axis, which share theirs, draw
+    alike), is what a family that samples draws from (Faster R-CNN's RoI
+    sampler); the single-stage
     families draw nothing. It is ``train_step.generator``, so that a
     checkpoint can save and restore its state."""
     loss = family.loss_fn(model, cfg)
     device = next(model.parameters()).device
-    generator = torch.Generator(device=device).manual_seed(seed + get_rank())
+    generator = torch.Generator(device=device).manual_seed(
+        seed + get_data_rank())
 
     def train_step(batch: dict) -> dict:
         batch = dict(batch, images=maybe_normalize_images(batch["images"]))

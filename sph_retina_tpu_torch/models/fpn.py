@@ -18,6 +18,9 @@ from .resnet import Conv2d
 
 
 class FPN(nn.Module):
+    # the width axis of a sharded model (parallel.sharding), for the upsample
+    space = None
+
     def __init__(self, in_channels: Sequence[int], out_channels: int = 256,
                  start_level: int = 1, num_outs: int = 5,
                  add_extra_convs: str = "on_input"):
@@ -43,8 +46,10 @@ class FPN(nn.Module):
         laterals = [getattr(self, f"lateral_{i}")(x)
                     for i, x in enumerate(used)]
         for i in range(len(laterals) - 1, 0, -1):
-            laterals[i - 1] = laterals[i - 1] + F.interpolate(
-                laterals[i], scale_factor=2, mode="nearest")
+            laterals[i - 1] = laterals[i - 1] + (
+                F.interpolate(laterals[i], scale_factor=2, mode="nearest")
+                if self.space is None
+                else self.space.upsample(self, i, laterals[i]))
         outs = [getattr(self, f"fpn_conv_{i}")(x)
                 for i, x in enumerate(laterals)]
         extra_src = outs[-1] if self.extra_on_output else inputs[-1]

@@ -27,6 +27,19 @@ import numpy as np
 import torch
 
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
+# a kernel's Flax dimension at each torch dimension: conv (H, W, I, O) ->
+# (O, I, H, W), dense (I, O) -> (O, I)
+_KERNEL_AXES = {4: (3, 2, 0, 1), 2: (1, 0)}
+
+
+def flax_axes(name: str, ndim: int) -> tuple:
+    """The torch dimension of each dimension of the Flax leaf that holds
+    the parameter ``name`` (``ndim`` dimensions): a 4-d or 2-d ``weight``
+    is a kernel, transposed as ``from_flax`` transposes it; any other
+    leaf keeps its order."""
+    if name.rsplit(".", 1)[-1] == "weight" and ndim in _KERNEL_AXES:
+        return tuple(_KERNEL_AXES[ndim].index(f) for f in range(ndim))
+    return tuple(range(ndim))
 
 
 def _walk(tree: dict, path=()):
@@ -54,8 +67,7 @@ def from_flax(params: dict, batch_stats: dict | None = None) -> dict:
                 raise ValueError(
                     f"{'/'.join(path)}: expected an (H, W, I, O) conv kernel "
                     f"or an (I, O) dense one, got shape {leaf.shape}")
-            put(f"{module}.weight", leaf.transpose(
-                (3, 2, 0, 1) if leaf.ndim == 4 else (1, 0)))
+            put(f"{module}.weight", leaf.transpose(_KERNEL_AXES[leaf.ndim]))
         elif name == "scale":
             put(f"{module}.weight", leaf)
         elif name == "bias":
@@ -92,7 +104,7 @@ def to_flax(state_dict: dict) -> tuple[dict, dict]:
             put(batch_stats, module + [stats_names[name]], value)
         elif name == "weight" and value.ndim in (2, 4):
             put(params, module + ["kernel"], np.ascontiguousarray(
-                value.transpose((2, 3, 1, 0) if value.ndim == 4 else (1, 0))))
+                value.transpose(flax_axes(name, value.ndim))))
         elif name == "weight" and value.ndim <= 1:
             put(params, module + ["scale"], value)
         elif name == "bias":

@@ -42,11 +42,30 @@ ARCH_SETTINGS = {
 
 
 class Conv2d(nn.Conv2d):
-    """Convolution with fp32 parameters that computes in its input's dtype."""
+    """Convolution with fp32 parameters that computes in its input's dtype.
+    In a width-sharded model (``space``, set by
+    ``parallel.sharding.partition_spatially``) it runs on this rank's
+    columns through the axis's halo exchange."""
+
+    space = None
 
     def forward(self, x):
+        if self.space is not None:
+            return self.space.window(self, x)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d``; in a width-sharded model (``space``, as
+    :class:`Conv2d`) through the axis's halo exchange."""
+
+    space = None
+
+    def forward(self, x):
+        if self.space is not None:
+            return self.space.window(self, x)
+        return super().forward(x)
 
 
 @torch.no_grad()
@@ -166,6 +185,7 @@ class ResNet(nn.Module):
         self.remat = remat
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
+        self.maxpool = MaxPool2d(3, 2, 1)
 
         in_planes, planes = 64, 64
         self.out_channels = []
@@ -189,7 +209,7 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, 2, 1)
+        x = self.maxpool(x)
         outs = []
         remat = self.remat and self.training and torch.is_grad_enabled()
         for stage, n_blocks in enumerate(self.stage_blocks):

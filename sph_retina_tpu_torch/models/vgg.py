@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .resnet import Conv2d, as_cpu_tensor
+from .resnet import Conv2d, MaxPool2d, as_cpu_tensor
 
 # VGG16: (conv count, channels) a block, a pool after each
 VGG16_BLOCKS = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
@@ -54,6 +54,11 @@ class SSDVGG(nn.Module):
                 self.add_module(f"conv{b + 1}_{i + 1}",
                                 Conv2d(in_ch, ch, 3, 1, 1))
                 in_ch = ch
+            # 2x2 stride 2, the ragged edge padded on the bottom/right;
+            # pool5: 3x3 stride 1 (the SSD variant keeps the resolution)
+            self.add_module(f"pool{b + 1}",
+                            MaxPool2d(2, 2, ceil_mode=True) if b < 4
+                            else MaxPool2d(3, 1, 1))
         self.l2_norm = L2Norm(512)
         self.conv6 = Conv2d(512, 1024, 3, 1, padding=6, dilation=6)
         self.conv7 = Conv2d(1024, 1024, 1)
@@ -65,12 +70,7 @@ class SSDVGG(nn.Module):
                 x = F.relu(getattr(self, f"conv{b + 1}_{i + 1}")(x))
             if b == 3:
                 feats.append(self.l2_norm(x))  # conv4_3
-            if b < 4:
-                # 2x2 stride 2, the ragged edge padded on the bottom/right
-                x = F.max_pool2d(x, 2, 2, ceil_mode=True)
-            else:
-                # pool5: 3x3 stride 1 (the SSD variant keeps the resolution)
-                x = F.max_pool2d(x, 3, 1, 1)
+            x = getattr(self, f"pool{b + 1}")(x)
         x = F.relu(self.conv6(x))
         x = F.relu(self.conv7(x))
         feats.append(x)

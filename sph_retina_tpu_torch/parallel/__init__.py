@@ -6,10 +6,10 @@ The JAX package's ``data_mesh`` and ``make_global_batch`` have no
 counterpart: each rank keeps its local batch, and no global array is
 assembled. Its ``replicate_to_mesh`` is ``broadcast_parameters`` here (the
 JAX function assumes the processes start alike; a broadcast from rank 0
-makes sure of it). Not ported yet: ``sharding.py``'s ``make_mesh``,
-``batch_specs``, ``fsdp_spec``, ``shard_state_fsdp`` and
-``sharded_pairwise_overlaps``; not owed: ``shard_batch_spatial`` (the
-spatial axis needs a convolution with a halo exchange).
+makes sure of it). ``sharding.py``: the ("data", "space") mesh, ZeRO-3
+state sharding, the width-sharded backbone and neck with their halo
+exchange (``partition_spatially``: what GSPMD does for the JAX package from
+the shardings alone) and the row-sharded pairwise overlaps.
 """
 
 from .distributed import (
@@ -20,12 +20,26 @@ from .distributed import (
     coordination_barrier,
     get_rank,
     get_world_size,
+    get_data_rank,
     global_count,
     global_metrics,
     host_local_copy,
     init_distributed,
+    loss_replicas,
     process_group,
+    set_data_axis,
     sync_global_value,
+)
+from .sharding import (
+    batch_specs,
+    fsdp_dims,
+    fsdp_spec,
+    make_mesh,
+    partition_spatially,
+    shard_batch_spatial,
+    shard_state_fsdp,
+    sharded_pairwise_overlaps,
+    window_halo,
 )
 
 __all__ = [
@@ -42,4 +56,16 @@ __all__ = [
     "all_reduce_gradients",
     "global_count",
     "global_metrics",
+    "set_data_axis",
+    "get_data_rank",
+    "loss_replicas",
+    "make_mesh",
+    "batch_specs",
+    "shard_batch_spatial",
+    "fsdp_spec",
+    "fsdp_dims",
+    "shard_state_fsdp",
+    "partition_spatially",
+    "window_halo",
+    "sharded_pairwise_overlaps",
 ]

@@ -24,6 +24,13 @@ process, every function here leaves its argument as it is (the gradient
 all-reduce still runs in a group of one: a sum over one rank). Every wait is
 bounded: the group's timeout bounds its collectives, and
 ``coordination_barrier`` takes its own.
+
+Where several ranks compute the loss of one shard of the batch (the ranks of
+a "space" axis, ``parallel/sharding.py:partition_spatially``), the loss
+normalisers and the logged metrics are summed over the *data* group only
+(``set_data_axis``), each of those ranks scales its loss by one over their
+number before the backward pass (``loss_replicas``), and the gradients are
+still summed over every rank.
 """
 
 from __future__ import annotations
@@ -50,6 +57,38 @@ def get_rank() -> int:
 def get_world_size() -> int:
     """The number of processes; 1 without a process group."""
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+# the group loss normalisers and metrics are summed over (None: every rank),
+# and how many ranks compute each shard's loss
+_DATA_AXIS = {"group": None, "replicas": 1}
+
+
+def set_data_axis(group=None, replicas: int = 1) -> None:
+    """Sum loss normalisers and metrics over ``group`` (None: every rank),
+    and have each of the ``replicas`` ranks that compute the same loss
+    scale it by ``1 / replicas`` in ``engine/train.py:run_step``. The
+    default, ``(None, 1)``, is plain data parallelism."""
+    _DATA_AXIS.update(group=group, replicas=int(replicas))
+
+
+def loss_replicas() -> int:
+    """How many ranks compute each loss (``set_data_axis``)."""
+    return _DATA_AXIS["replicas"]
+
+
+def _data_group_size() -> int:
+    if not dist.is_initialized():
+        return 1
+    return dist.get_world_size(_DATA_AXIS["group"])
+
+
+def get_data_rank() -> int:
+    """This process's rank in the data group (``get_rank`` without a
+    "space" axis): which shard of the batch it reads."""
+    if not dist.is_initialized():
+        return 0
+    return dist.get_rank(_DATA_AXIS["group"])
 
 
 def init_distributed(launcher: str = "none", backend: str | None = None,
@@ -166,11 +205,13 @@ def all_reduce_gradients(params, bucket_bytes: int = BUCKET_BYTES) -> None:
     """Sum each parameter's ``.grad`` over the ranks, in place, in flat
     buckets of at most ``bucket_bytes``. Parameters without a gradient are
     left out (which ones have none is the model's structure, alike on every
-    rank). A no-op without a group; in a group of one, a sum over one
-    rank."""
+    rank), and so are the slices of ``parallel.sharding.shard_state_fsdp``
+    (their gradients were reduce-scattered in the backward pass). A no-op
+    without a group; in a group of one, a sum over one rank."""
     if not dist.is_initialized():
         return
-    grads = [p.grad for p in params if p.grad is not None]
+    grads = [p.grad for p in params
+             if p.grad is not None and getattr(p, "fsdp", None) is None]
     _flat_collective(grads, dist.all_reduce, bucket_bytes)
 
 
@@ -188,11 +229,13 @@ def global_count(x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the ranks: a loss normaliser (a number of positives
     or of samples) over the global batch. No gradient flows through it. The
     identity without a group or in a group of one. Every rank must call it
-    at the same point of its step, whatever its data."""
-    if get_world_size() == 1:
+    at the same point of its step, whatever its data. Over the data group
+    (``set_data_axis``): the ranks of a "space" axis count their shard
+    once."""
+    if _data_group_size() == 1:
         return x
     y = _on_backend(x.detach().clone())
-    dist.all_reduce(y)
+    dist.all_reduce(y, group=_DATA_AXIS["group"])
     return y.to(x.device)
 
 
@@ -200,15 +243,15 @@ def global_metrics(metrics: dict) -> dict:
     """Each 0-dim metric summed over the ranks (the ranks' losses, each
     normalised by global counts, sum to the global batch's loss), in one
     all-reduce, as float32 on the first metric's device. Unchanged without
-    a group or in a group of one."""
-    if get_world_size() == 1 or not metrics:
+    a group or in a group of one. Over the data group, as ``global_count``."""
+    if _data_group_size() == 1 or not metrics:
         return metrics
     keys = list(metrics)
     device = torch.as_tensor(metrics[keys[0]]).device
     flat = torch.stack([torch.as_tensor(metrics[k], device=device).detach()
                         .to(torch.float32).reshape(()) for k in keys])
     flat = _on_backend(flat)
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=_DATA_AXIS["group"])
     flat = flat.to(device)
     return dict(zip(keys, flat.unbind()))
 

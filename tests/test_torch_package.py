@@ -105,13 +105,8 @@ NOT_PORTED = {
     "models": set(),
     "engine": {"TrainState", "create_train_state", "shard_batch"},
     # data_mesh, make_global_batch: no counterpart (each rank keeps its
-    # local batch); replicate_to_mesh is broadcast_parameters here;
-    # make_mesh, batch_specs, fsdp_spec, shard_state_fsdp and
-    # sharded_pairwise_overlaps are the next item of the port's queue;
-    # shard_batch_spatial is not owed (no halo-exchange convolution)
-    "parallel": {"data_mesh", "make_global_batch", "replicate_to_mesh",
-                 "make_mesh", "batch_specs", "fsdp_spec", "shard_state_fsdp",
-                 "sharded_pairwise_overlaps", "shard_batch_spatial"},
+    # local batch); replicate_to_mesh is broadcast_parameters here
+    "parallel": {"data_mesh", "make_global_batch", "replicate_to_mesh"},
     "visualize": set(),
 }
 

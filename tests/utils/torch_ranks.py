@@ -12,6 +12,16 @@ Jobs:
 - ``train``: ``train.main`` with ``--launcher torch``, then ``test.main``
   where the spec gives its arguments; counts this rank's file writes and
   digests its parameters and EMA shadow.
+- ``sharded``: for each run of the spec, a mesh of its ``space``, the model
+  partitioned over it and, with ``fsdp``, its state sharded; optionally a
+  checkpoint loaded into the sharded state (and then no step), else one
+  train step on this rank's part of the batch (``shard_batch_spatial``);
+  rank 0 saves the whole gradients (summed over the ranks, before the
+  optimiser's clip), the metrics summed over the data group, the whole
+  state after the step, each parameter's local shape before and after and
+  the neck outputs' global widths. A run with ``overlaps``
+  computes ``sharded_pairwise_overlaps`` and the unsharded ``sph_overlaps``
+  instead.
 """
 
 import hashlib
@@ -81,6 +91,75 @@ def steps(spec: dict, rank: int, world: int) -> dict:
     return out
 
 
+def _sharded_run(spec: dict, run: dict, rank: int, world: int) -> dict:
+    from sph_retina_tpu_torch.iou.api import sph_overlaps
+
+    parallel.set_data_axis()  # each run on its own mesh
+    mesh = parallel.make_mesh(space=run["space"])
+    if "overlaps" in run:
+        with np.load(run["overlaps"]) as f:
+            b1, b2 = torch.from_numpy(f["b1"]), torch.from_numpy(f["b2"])
+        got = parallel.sharded_pairwise_overlaps(b1, b2, mesh)
+        return {"got": got, "want": sph_overlaps(
+            b1, b2, "sph2pob_efficient", is_aligned=False)}
+    model_spec = spec["models"][run["model"]]
+    cfg = apply_overrides(load_config(model_spec["config"]),
+                          model_spec["options"])
+    family = get_family(cfg)
+    model, det_cfg = family.build(cfg)
+    model.load_state_dict(torch.load(model_spec["weights"]))
+    optimizer = build_tx(cfg, model, steps_per_epoch=1,
+                         num_processes=world // run["space"])
+    parallel.partition_spatially(model, mesh)
+    if run.get("fsdp"):
+        parallel.shard_state_fsdp(model, optimizer, mesh)
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    if run.get("load"):
+        runner.load_checkpoint(run["load"], model, optimizer)
+        return {"model": model.state_dict(),
+                "optimizer": optimizer.state_dict(), "shapes": shapes}
+    step = make_generic_train_step(family, model, det_cfg, optimizer)
+    with np.load(model_spec["batch"]) as f:
+        full = {k: f[k] for k in f.files if k != "img_id"}
+    synced = {}
+    real_step = optimizer.step
+
+    def stepping():
+        synced.update(zip(optimizer.names, (g.clone() for g in
+                                            parallel.sharding.full_tensors(
+            [p.grad for p in optimizer.params], optimizer.params))))
+        real_step()
+
+    optimizer.step = stepping
+    metrics = parallel.global_metrics(step(parallel.shard_batch_spatial(
+        full, mesh)))
+    axis = getattr(model, "space_axis", None)
+    out = dict(grads=synced,
+               metrics={k: float(v) for k, v in metrics.items()},
+               params=model.state_dict(),
+               optimizer=optimizer.state_dict(), shapes_before=shapes,
+               shapes_after={n: tuple(p.shape)
+                             for n, p in model.named_parameters()},
+               neck_widths=None if axis is None else [
+                   g for k, g in axis.plan.items()
+                   if isinstance(k, tuple) and k[0] == "out"])
+    if run.get("save"):
+        runner.RankZeroCheckpointer(run["save"]).save(model, optimizer, 1)
+    return out
+
+
+def sharded(spec: dict, rank: int, world: int) -> dict:
+    seconds = {}
+    for run in spec["runs"]:
+        t0 = time.monotonic()
+        out = _sharded_run(spec, run, rank, world)
+        if rank == 0:
+            torch.save(out, os.path.join(spec["out_dir"],
+                                         f"{run['name']}.pt"))
+        seconds[run["name"]] = time.monotonic() - t0
+    return {"run_seconds": seconds}
+
+
 def train(spec: dict, rank: int, world: int) -> dict:
     writes = []
     write = runner._write_atomically
@@ -116,7 +195,8 @@ def main() -> int:
     with parallel.process_group("torch", device="cpu",
                                 timeout_s=spec["timeout_s"]) as (rank,
                                                                  world):
-        out = {"steps": steps, "train": train}[job](spec, rank, world)
+        out = {"steps": steps, "train": train,
+               "sharded": sharded}[job](spec, rank, world)
         parallel.coordination_barrier("done", timeout_s=spec["timeout_s"])
     print(json.dumps({"rank": rank, "world": world,
                       "seconds": time.monotonic() - START, **out}), flush=True)
