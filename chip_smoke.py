@@ -226,13 +226,31 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             images, each rank's bytes of parameters, momentum and EMA beside
             the unsharded bytes, rank 0's checkpoint loaded into a model of
             one process equal to the gathered parameters; (c) data 1 x
-            space 2, 2 steps at batch 2: each step's loss within 1e-4 of
-            one process's, the update within ``PARALLEL_TOLERANCE``, K1
-            once a step a rank at (128, 98208) D=5, bitwise on its last
-            input; (d) ``sharded_pairwise_overlaps`` of the config's 98 208
-            anchors against 256 seeded boxes over the two ranks, within
-            rtol 1e-5 / atol 1e-6 of the unsharded ``sph_overlaps``, each
-            rank's ms
+            space 2 through the split RetinaNet head, 2 steps at batch 2:
+            each step's loss within 1e-4 of one process's, the update
+            within ``PARALLEL_TOLERANCE``, K1 once a step a rank at
+            (128, 49104) D=5 against the rank's own anchors, bitwise on
+            rank 0's last input, the two ranks' last labels joined equal to
+            one process's, and the trained model's ``predict_fn`` on the
+            whole last batch (its classifier scaled so that detections
+            are made) equal to one process's of the same weights (valid
+            detections, labels and indices equal, boxes, scores and the
+            head's joined outputs within rtol 1e-3 / atol 1e-4); (d)
+            ``sharded_pairwise_overlaps`` of the
+            config's 98 208 anchors against 256 seeded boxes over the two
+            ranks, within rtol 1e-5 / atol 1e-6 of the unsharded
+            ``sph_overlaps``, each rank's ms; (e) the FCOS config through
+            its split head, data 1 x space 2, 2 steps at batch 2 in fp32
+            against one process on the same images (losses 1e-4, the update
+            within ``PARALLEL_TOLERANCE``); (f) the SSD config through its
+            gathered head (the neck's outputs gathered, the loss scaled by
+            1/2), the same steps and gates, K1 once a step a rank at
+            (128, 49056) D=4, bitwise on rank 0's last input; a line before
+            the phase's own gives, for (c) and (e), each rank's head
+            columns, bytes allocated at the start and peak memory, forward
+            FLOPs at batch 1 and steady step ms beside one process's and
+            the card's name and power limit, and each run's three largest
+            transients of a module's forward in its first step
 24. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
@@ -5697,17 +5715,31 @@ def phase_study_full(seed: int, reps: int) -> None:
 
 
 SHARDING_STEPS = 4          # (a): batch 4 at world 1 over NCCL
-SHARDING_RANK_STEPS = 2     # (b), (c): 2 steps of the two gloo ranks
+SHARDING_RANK_STEPS = 2     # (b), (c), (e), (f): 2 steps of two gloo ranks
 SHARDING_FSDP_BATCH = 4     # (b): the global batch, 2 images a rank
-SHARDING_SPACE_BATCH = 2    # (c): each space rank the whole 2, half width
-SHARDING_CHILD_S = 300.0    # (b)-(d): each rank's deadline
-SHARDING_SHAPE = (128, 98208, 5)  # (b), (c): each rank's 2 images x max_gt 64
-SHARDING_LOSS_RTOL = 1e-4   # (c): tests/test_sharding.py's tolerance
-SHARDING_NECK_WIDTHS = [128, 64, 32, 16, 8]  # (c): P3-P7 at 1024, all split
+SHARDING_SPACE_BATCH = 2    # (c), (e), (f): each space rank the whole 2
+SHARDING_CHILD_S = 300.0    # (b)-(f): each rank's deadline
+SHARDING_SHAPE = (128, 98208, 5)  # (b): each rank's 2 images x max_gt 64
+SHARDING_SPLIT_SHAPE = (128, 49104, 5)  # (c): against the rank's own anchors
+SHARDING_SSD_SHAPE = (128, 49056, 4)    # (f): the gathered head, every anchor
+SHARDING_LOSS_RTOL = 1e-4   # (c), (e), (f): tests/test_sharding.py's
+SHARDING_NECK_WIDTHS = [128, 64, 32, 16, 8]  # (c), (e): P3-P7 at 1024, split
+SHARDING_HEAD_COLUMNS = [64, 32, 16, 8, 4]   # (c), (e): a rank's head inputs
+# (b), (c) the rotated RetinaNet, (e) FCOS, (f) SSD: (part, space size,
+# batch, config)
+SHARDING_PARTS = (("b", 1, SHARDING_FSDP_BATCH, CONFIG),
+                  ("c", 2, SHARDING_SPACE_BATCH, CONFIG),
+                  ("e", 2, SHARDING_SPACE_BATCH, FCOS_CONFIG),
+                  ("f", 2, SHARDING_SPACE_BATCH, SSD_CONFIG))
+# (c)'s predict: the classifier's weights scaled so that the random model's
+# logits (std ~0.5 about the prior's -4.6 after two steps) spread past the
+# score threshold without saturating the sigmoid
+SHARDING_PREDICT_CLS_SCALE = 4.0
+SHARDING_PREDICT_TOLERANCE = {"rtol": 1e-3, "atol": 1e-4}  # the CPU test's
 OVERLAP_BOXES = 256         # (d): seeded boxes against the config's anchors
 OVERLAP_TOLERANCE = {"rtol": 1e-5, "atol": 1e-6}  # (d): the JAX test's
 
-# The ranks of phase (b)-(d), run as ``python -c SHARDING_CHILD SPEC_JSON
+# The ranks of phase (b)-(f), run as ``python -c SHARDING_CHILD SPEC_JSON
 # K1_INPUT_FILE TIMEOUT_S`` (``_ranks_of_one_card``): K1 recorded, then
 # ``sharding_child`` writing beside that file. Prints one JSON line.
 SHARDING_CHILD = r'''
@@ -5730,16 +5762,54 @@ def _state_bytes(model, optimizer) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+class _Transients:
+    """Forward hooks on every leaf module of a model: for each call, the
+    bytes allocated on the card above those allocated at its end, since the
+    previous call ended (its workspace and temporaries: the allocator's own
+    counts, no synchronisation). ``peak`` keeps the process's peak, which
+    each call's reset of it would lose."""
+
+    def __init__(self, model, device):
+        self.device, self.rows, self.peak = device, [], 0
+        self.handles = [m.register_forward_hook(self._hook(name))
+                        for name, m in model.named_modules()
+                        if not any(m.children())]
+
+    def _hook(self, name):
+        def hook(module, args, out):
+            top = torch.cuda.max_memory_allocated(self.device)
+            self.peak = max(self.peak, top)
+            self.rows.append((top - torch.cuda.memory_allocated(self.device),
+                              name, list(getattr(args[0], "shape", ()))))
+            torch.cuda.reset_peak_memory_stats(self.device)
+        return hook
+
+    def remove(self) -> list:
+        """The hooks removed; the three largest calls."""
+        for h in self.handles:
+            h.remove()
+        return [{"bytes": b, "module": n, "input": shape}
+                for b, n, shape in sorted(self.rows, reverse=True)[:3]]
+
+
 def sharded_training(cfg: dict, seed: int, device, steps: int, mesh=None,
-                     fsdp: bool = False) -> dict:
+                     fsdp: bool = False, flops: bool = False) -> dict:
     """``steps`` train steps of ``cfg``'s model on its synthetic set, the
     config's ``samples_per_gpu`` being the global batch: as one process
     (``mesh`` None), or this rank's part of each batch
     (``shard_batch_spatial``) with the model partitioned over ``mesh``'s
     space axis and, with ``fsdp``, its state sharded over the data axis.
     Returns the model, its detector config and optimiser, each step's
-    metrics (summed over the data group) and ms (host clock, synchronised),
-    and the bytes of state held before and after the sharding."""
+    metrics (summed over the ranks ``global_metrics`` sums over) and ms
+    (host clock, synchronised), the bytes of state held before and after
+    the sharding, the process's bytes allocated on the card at the call's
+    start and its peak from there (``torch.cuda.max_memory_allocated``),
+    the last batch's whole images and, with ``flops``,
+    ``get_flops.count_flops`` of one forward of the last batch's first
+    image (this rank's columns) and the first step's three largest
+    transients of a module's forward (``_Transients``)."""
+    torch.cuda.reset_peak_memory_stats(device)
+    start_bytes = torch.cuda.memory_allocated(device)
     family = get_family(cfg)
     loader, _ = train_cli.synthetic_loaders(cfg, seed)
     model, det_cfg = family.build(cfg)
@@ -5754,9 +5824,12 @@ def sharded_training(cfg: dict, seed: int, device, steps: int, mesh=None,
     step = make_generic_train_step(family, model, det_cfg, optimizer,
                                    seed=seed)
     metrics, step_ms = [], []
+    probe = _Transients(model, device) if flops else None
+    transients = None
     for batch in itertools.islice(loader.epoch(0), steps):
         batch = to_device({k: v for k, v in batch.items() if k != "img_id"},
                           device)
+        images = batch["images"]
         if mesh is not None:
             batch = parallel.shard_batch_spatial(batch, mesh)
         torch.cuda.synchronize()
@@ -5765,26 +5838,84 @@ def sharded_training(cfg: dict, seed: int, device, steps: int, mesh=None,
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         metrics.append({k: float(v) for k, v in got.items()})
+        if probe is not None and transients is None:
+            transients = probe.remove()
     if len(metrics) != steps or not all(
             math.isfinite(v) for m in metrics for v in m.values()):
         raise AssertionError(f"{len(metrics)} steps, metrics {metrics}")
+    peak = max(torch.cuda.max_memory_allocated(device),
+               probe.peak if probe is not None else 0)
+    count = None
+    if flops:
+        with torch.no_grad():
+            count = flops_cli.count_flops(
+                model, maybe_normalize_images(batch["images"][:1])).total
     return {"model": model, "det_cfg": det_cfg, "optimizer": optimizer,
             "metrics": metrics, "step_ms": step_ms, "whole_bytes": whole,
-            "local_bytes": _state_bytes(model, optimizer)}
+            "local_bytes": _state_bytes(model, optimizer),
+            "start_bytes": start_bytes, "peak_bytes": peak,
+            "transients": transients, "images": images,
+            "forward_flops": count}
 
 
-def _sharding_cfg(batch: int, steps: int, options=PARALLEL_OPTIONS) -> dict:
-    return apply_overrides(load_config(CONFIG), [
+def _sharding_cfg(batch: int, steps: int, options=PARALLEL_OPTIONS,
+                  config: str = CONFIG) -> dict:
+    return apply_overrides(load_config(config), [
         f"data.samples_per_gpu={batch}", f"data.n_synthetic={batch * steps}",
         *options])
+
+
+def _head_columns(axis) -> list:
+    """The columns each level's first head conv sees on this rank (before
+    its halo): the plan's global input widths, split where they divide."""
+    first = axis.head.cls_conv_0
+    return [g // axis.size if g % axis.size == 0 else g
+            for k, g in axis.plan.items()
+            if isinstance(k, tuple) and k[0] is first]
+
+
+def _kept_targets(kept: dict):
+    """``single_stage.anchor_targets`` that keeps its last labels (on the
+    host) in ``kept["labels"]``."""
+    real = single_stage.anchor_targets
+
+    def targets(*args, **kwargs):
+        t = real(*args, **kwargs)
+        kept["labels"] = t.labels.cpu()
+        return t
+
+    return targets
+
+
+def _predict_whole(model, cfg: dict, det_cfg, images) -> dict:
+    """(c)'s predict on whole images, the classifier scaled by
+    ``SHARDING_PREDICT_CLS_SCALE``: the family's ``predict_fn`` (on a
+    partitioned model, each rank its columns, the head's levels joined
+    before the top-k) and the head's per-level outputs joined
+    (``whole_levels``), on the host. Every rank of a partitioned model
+    calls it."""
+    model.eval()
+    with torch.no_grad():
+        model.bbox_head.retina_cls.weight.mul_(SHARDING_PREDICT_CLS_SCALE)
+        got = get_family(cfg).predict_fn(model, det_cfg)(images)
+        x = maybe_normalize_images(images)
+        axis = getattr(model, "space_axis", None)
+        heads = parallel.sharding.whole_levels(
+            model, model(x if axis is None else axis.columns(x)),
+            det_cfg.featmap_sizes())
+    return {"detections": {k: v.cpu() for k, v in got._asdict().items()},
+            "heads": [torch.cat(levels, 1).cpu() for levels in heads]}
 
 
 def sharding_child(spec: dict, out: str, timeout_s: float, calls: dict,
                    last: dict) -> dict:
     """One of the two gloo ranks of phase ``sharding``: (b) FSDP over data
-    2, (c) data 1 x space 2, (d) the row-sharded overlaps. Writes rank 0's
-    gathered parameters, its checkpoint and each rank's last assignment
-    input under ``out``; returns what the phase reads."""
+    2, (c) data 1 x space 2 (the split RetinaNet head), (e) the same for
+    FCOS, (f) for SSD (its gathered head), (d) the row-sharded overlaps.
+    Writes rank 0's gathered parameters, its checkpoint, each rank's last
+    assignment input and, in (c), its last labels and rank 0's predict on
+    the whole last batch (``_predict_whole``) under ``out``; returns what
+    the phase reads."""
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.allow_tf32 = False
     device, seed = torch.device(spec["device"]), spec["seed"]
@@ -5792,16 +5923,19 @@ def sharding_child(spec: dict, out: str, timeout_s: float, calls: dict,
         "torch", backend="gloo", timeout_s=timeout_s, device=device)
     report = {"rank": rank, "world": world,
               "backend": torch.distributed.get_backend()}
+    kept, real_targets = {}, single_stage.anchor_targets
+    single_stage.anchor_targets = _kept_targets(kept)
     try:
-        for part, space, batch in (("b", 1, SHARDING_FSDP_BATCH),
-                                   ("c", 2, SHARDING_SPACE_BATCH)):
+        for part, space, batch, config in SHARDING_PARTS:
             parallel.set_data_axis()
             mesh = parallel.make_mesh(space=space)
             calls["assign"].clear()
+            kept.clear()
             sph2pob_iou_pairwise.launches = 0
-            run = sharded_training(_sharding_cfg(batch, SHARDING_RANK_STEPS),
-                                   seed, device, SHARDING_RANK_STEPS, mesh,
-                                   fsdp=part == "b")
+            cfg = _sharding_cfg(batch, SHARDING_RANK_STEPS, config=config)
+            run = sharded_training(
+                cfg, seed, device, SHARDING_RANK_STEPS, mesh,
+                fsdp=part == "b", flops=part in ("c", "e"))
             torch.cuda.synchronize()
             launches = sph2pob_iou_pairwise.launches
             model, optimizer = run["model"], run["optimizer"]
@@ -5812,18 +5946,33 @@ def sharding_child(spec: dict, out: str, timeout_s: float, calls: dict,
             if rank == 0:
                 torch.save({k: v.cpu() for k, v in params.items()},
                            os.path.join(out, f"{part}_params.pt"))
-            torch.save(last["input"], os.path.join(
-                out, f"{part}_k1_input_rank{rank}.pt"))
+            if "input" in last:
+                torch.save(last.pop("input"), os.path.join(
+                    out, f"{part}_k1_input_rank{rank}.pt"))
+            if part == "c":
+                torch.save(kept["labels"], os.path.join(
+                    out, f"{part}_labels_rank{rank}.pt"))
+                predicted = _predict_whole(model, cfg, run["det_cfg"],
+                                           run["images"])
+                if rank == 0:
+                    torch.save({"images": run["images"].cpu(), **predicted},
+                               os.path.join(out, "c_predict.pt"))
             axis = getattr(model, "space_axis", None)
             report[part] = {
                 "metrics": run["metrics"], "step_ms": run["step_ms"],
                 "state_bytes": run["local_bytes"],
                 "unsharded_state_bytes": run["whole_bytes"],
+                "start_bytes": run["start_bytes"],
+                "peak_bytes": run["peak_bytes"],
+                "transients": run["transients"],
+                "forward_flops": run["forward_flops"],
                 "sharded_tensors": sum(hasattr(p, "fsdp")
                                        for p in model.parameters()),
                 "neck_widths": None if axis is None else [
                     g for k, g in axis.plan.items()
                     if isinstance(k, tuple) and k[0] == "out"],
+                "head_columns": None if axis is None or axis.head is None
+                else _head_columns(axis),
                 "launches": launches, "assign_calls": list(calls["assign"])}
             del run, model, optimizer, params
             torch.cuda.empty_cache()
@@ -5855,9 +6004,55 @@ def sharding_child(spec: dict, out: str, timeout_s: float, calls: dict,
                 finite=bool(torch.isfinite(got).all()))
         parallel.coordination_barrier("done", timeout_s=timeout_s)
     finally:
+        single_stage.anchor_targets = real_targets
         parallel.set_data_axis()
         torch.distributed.destroy_process_group()
     return report
+
+
+def _predict_against_one_process(path: str, params: str, device) -> dict:
+    """(c)'s predict of the partitioned model (``path``) against one
+    process's of the same weights (``params``) on the same whole images, in
+    fp32 with TF32 off as the ranks ran: the head's joined outputs, and the
+    boxes and scores of the valid detections, within
+    ``SHARDING_PREDICT_TOLERANCE``; the valid detections, their labels and
+    anchor indices equal. Fails where no detection is made."""
+    got = torch.load(path)
+    cfg = _sharding_cfg(SHARDING_SPACE_BATCH, SHARDING_RANK_STEPS)
+    model, det_cfg = get_family(cfg).build(cfg)
+    model.load_state_dict(torch.load(params))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = _predict_whole(model.to(device), cfg, det_cfg,
+                              got["images"].to(device))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    g, w = got["detections"], want["detections"]
+    valid = w["valid"]
+    said = {"detections": int(valid.sum()),
+            "distinct_scores": int(w["scores"][valid].unique().numel()),
+            "score_range": [float(w["scores"][valid].min()),
+                            float(w["scores"][valid].max())],
+            "mismatches": {k: int((g[k] != w[k])[valid].sum())
+                           for k in ("valid", "labels", "inds")},
+            "max_abs_gap": {}, "tolerance": SHARDING_PREDICT_TOLERANCE,
+            "classifier_scale": SHARDING_PREDICT_CLS_SCALE}
+    gaps = said["max_abs_gap"]
+    for name, a, b in zip(("head_cls", "head_reg"), got["heads"],
+                          want["heads"]):
+        gaps[name] = float((a - b).abs().max())
+        if a.shape != b.shape or not torch.allclose(
+                a, b, **SHARDING_PREDICT_TOLERANCE):
+            raise AssertionError(f"(c) the head's joined outputs: {said}")
+    if said["detections"] == 0 or any(said["mismatches"].values()):
+        raise AssertionError(f"(c) predict: {said}")
+    for k in ("boxes", "scores"):
+        gaps[k] = float((g[k][valid] - w[k][valid]).abs().max())
+        if not torch.allclose(g[k][valid], w[k][valid],
+                              **SHARDING_PREDICT_TOLERANCE):
+            raise AssertionError(f"(c) predict: {said}")
+    return said
 
 
 def _param_gap(got: dict, want: dict) -> float:
@@ -5869,7 +6064,9 @@ def _param_gap(got: dict, want: dict) -> float:
 def phase_sharding(seed: int, reps: int, smi: str) -> tuple[int, list]:
     """``parallel/sharding.py`` on the rotated config at full width (see the
     module docstring, phase 23). Returns K1's launches and its checks on the
-    assignment inputs of (a) and of (c)'s rank 0."""
+    assignment inputs of (a) and of (c)'s rank 0. Prints the split heads'
+    line (each rank's head columns, peak memory, forward FLOPs, steady step
+    ms, and one process's) before the phase's own."""
     device = resolve_device()
     t_phase = time.perf_counter()
     seconds, checks, launches = {}, [], 0
@@ -5941,33 +6138,42 @@ def phase_sharding(seed: int, reps: int, smi: str) -> tuple[int, list]:
     del runs, none, nccl, want, start
     torch.cuda.empty_cache()
 
-    # the one-process references of (b) and (c), fp32 with TF32 off
+    # the one-process references of (b), (c), (e) and (f), fp32 with TF32 off
     torch.backends.cudnn.deterministic = True
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
-    refs = {}
+    refs, theta0, labels = {}, {}, {}
+    real_targets = single_stage.anchor_targets
+    single_stage.anchor_targets = _kept_targets(labels)
     try:
-        for part, batch in (("b", SHARDING_FSDP_BATCH),
-                            ("c", SHARDING_SPACE_BATCH)):
+        for part, _, batch, config in SHARDING_PARTS:
             sph2pob_iou_pairwise.launches = 0
+            labels.clear()
+            cfg = _sharding_cfg(batch, SHARDING_RANK_STEPS, config=config)
             t0 = time.perf_counter()
-            run = sharded_training(_sharding_cfg(batch, SHARDING_RANK_STEPS),
-                                   seed, device, SHARDING_RANK_STEPS)
+            run = sharded_training(cfg, seed, device, SHARDING_RANK_STEPS,
+                                   flops=part in ("c", "e"))
             torch.cuda.synchronize()
             seconds[f"{part}_one_process"] = time.perf_counter() - t0
             launches += sph2pob_iou_pairwise.launches
             refs[part] = {"metrics": run["metrics"], "step_ms":
                           run["step_ms"], "params": {
                               k: v.detach().cpu() for k, v in
-                              run["model"].state_dict().items()}}
+                              run["model"].state_dict().items()},
+                          "start_bytes": run["start_bytes"],
+                          "peak_bytes": run["peak_bytes"],
+                          "transients": run["transients"],
+                          "forward_flops": run["forward_flops"],
+                          "labels": labels.get("labels")}
             del run
             torch.cuda.empty_cache()
+            start = get_family(cfg).build(cfg)[0]
+            start.init_weights(torch.Generator().manual_seed(seed))
+            theta0[part] = start.state_dict()
     finally:
+        single_stage.anchor_targets = real_targets
         torch.backends.cudnn.allow_tf32 = tf32
     cfg = _sharding_cfg(SHARDING_FSDP_BATCH, SHARDING_RANK_STEPS)
-    start = get_family(cfg).build(cfg)[0]
-    start.init_weights(torch.Generator().manual_seed(seed))
-    theta0 = start.state_dict()
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
@@ -5975,23 +6181,29 @@ def phase_sharding(seed: int, reps: int, smi: str) -> tuple[int, list]:
         ranks = _ranks_of_one_card({"seed": seed, "device": device.type},
                                    tmp, child=SHARDING_CHILD,
                                    deadline_s=SHARDING_CHILD_S)
-        seconds["bcd_two_ranks"] = time.perf_counter() - t0
+        seconds["two_ranks"] = time.perf_counter() - t0
         (r0, _), (r1, _) = ranks
         for r, said in ranks:
             if r["backend"] != "gloo" or r["world"] != 2:
                 raise AssertionError(f"rank {r['rank']} said {said[-2000:]}")
-            for part in ("b", "c"):
-                if r[part]["assign_calls"] != [list(SHARDING_SHAPE)] \
-                        * SHARDING_RANK_STEPS \
-                        or r[part]["launches"] != SHARDING_RANK_STEPS:
+            # K1 once a step a rank: (b) against every anchor, (c) against
+            # the rank's own, (f) SSD's against every anchor (its head is
+            # gathered); FCOS (e) assigns without it
+            for part, shape, n in (("b", SHARDING_SHAPE, SHARDING_RANK_STEPS),
+                                   ("c", SHARDING_SPLIT_SHAPE,
+                                    SHARDING_RANK_STEPS), ("e", None, 0),
+                                   ("f", SHARDING_SSD_SHAPE,
+                                    SHARDING_RANK_STEPS)):
+                if r[part]["assign_calls"] != [list(shape or ())] * n \
+                        or r[part]["launches"] != n:
                     raise AssertionError(
                         f"rank {r['rank']} ({part}): {r[part]['launches']} "
                         f"K1 launches, calls {r[part]['assign_calls']}")
                 launches += r[part]["launches"]
         result = {}
-        for part in ("b", "c"):
+        for part in ("b", "c", "e", "f"):
             got = torch.load(os.path.join(tmp, f"{part}_params.pt"))
-            gap = _update_gap(got, refs[part]["params"], theta0)
+            gap = _update_gap(got, refs[part]["params"], theta0[part])
             if not gap <= PARALLEL_TOLERANCE:
                 raise AssertionError(
                     f"({part}): the two ranks' update is {gap} from one "
@@ -6024,20 +6236,72 @@ def phase_sharding(seed: int, reps: int, smi: str) -> tuple[int, list]:
                          for r, _ in ranks},
             unsharded_state_bytes=r0["b"]["unsharded_state_bytes"],
             checkpoint_loads_into_one_process=True)
-        # (c): the loss of every step, and K1 on rank 0's last input
-        for got, want in zip(result["c"]["losses"],
-                             result["c"]["one_process_losses"]):
-            if not abs(got - want) <= SHARDING_LOSS_RTOL * abs(want):
-                raise AssertionError(
-                    f"(c): loss {got} against one process's {want}")
-        if r0["c"]["neck_widths"] != SHARDING_NECK_WIDTHS:
-            raise AssertionError(f"(c): neck {r0['c']['neck_widths']}")
-        result["c"]["neck_widths"] = r0["c"]["neck_widths"]
-        b1, b2 = torch.load(os.path.join(tmp, "c_k1_input_rank0.pt"))
-        checks.append({"input": "sharding (c): rank 0's last assignment "
-                                "input, data 1 x space 2",
-                       **check_kernel(KERNELS[0], b1.to(device),
-                                      b2.to(device), reps, identical=False)})
+        # (c), (e), (f): the loss of every step
+        for part in ("c", "e", "f"):
+            for got, want in zip(result[part]["losses"],
+                                 result[part]["one_process_losses"],
+                                 strict=True):
+                if not abs(got - want) <= SHARDING_LOSS_RTOL * abs(want):
+                    raise AssertionError(
+                        f"({part}): loss {got} against one process's {want}")
+        result["f"]["neck_widths"] = r0["f"]["neck_widths"]
+        # (c), (e): the split head's widths
+        for part in ("c", "e"):
+            for r, _ in ranks:
+                if r[part]["neck_widths"] != SHARDING_NECK_WIDTHS \
+                        or r[part]["head_columns"] != SHARDING_HEAD_COLUMNS:
+                    raise AssertionError(
+                        f"({part}) rank {r['rank']}: neck "
+                        f"{r[part]['neck_widths']}, head columns "
+                        f"{r[part]['head_columns']}")
+            result[part].update(
+                neck_widths=r0[part]["neck_widths"],
+                head_columns={f"rank{r['rank']}": r[part]["head_columns"]
+                              for r, _ in ranks},
+                start_bytes={f"rank{r['rank']}": r[part]["start_bytes"]
+                             for r, _ in ranks},
+                peak_bytes={f"rank{r['rank']}": r[part]["peak_bytes"]
+                            for r, _ in ranks},
+                one_process_start_bytes=refs[part]["start_bytes"],
+                one_process_peak_bytes=refs[part]["peak_bytes"],
+                transients={f"rank{r['rank']}": r[part]["transients"]
+                            for r, _ in ranks},
+                one_process_transients=refs[part]["transients"],
+                forward_flops={f"rank{r['rank']}": r[part]["forward_flops"]
+                               for r, _ in ranks},
+                one_process_forward_flops=refs[part]["forward_flops"])
+        # (c): the two ranks' last labels joined are one process's
+        det_cfg = get_family(cfg).build(cfg)[1]
+        joined = torch.full_like(refs["c"]["labels"], -2)
+        for r in range(2):
+            part = parallel.head_part(
+                det_cfg.featmap_sizes(),
+                det_cfg.anchor_generator.num_base_anchors, 2, r)
+            joined[:, part.indices] = torch.load(
+                os.path.join(tmp, f"c_labels_rank{r}.pt"))
+        if not torch.equal(joined, refs["c"]["labels"]):
+            raise AssertionError(
+                "(c): the ranks' labels differ from one process's at "
+                f"{int((joined != refs['c']['labels']).sum())} anchors")
+        result["c"]["labels_equal_one_process"] = True
+        result["c"]["positives"] = int(
+            (refs["c"]["labels"] < det_cfg.num_classes).sum())
+        # (c): the predict of the partitioned model on whole images, and
+        # the head's joined outputs, are one process's of the same weights
+        result["c"]["predict"] = _predict_against_one_process(
+            os.path.join(tmp, "c_predict.pt"),
+            os.path.join(tmp, "c_params.pt"), device)
+        # K1 on rank 0's last input of (c) and of (f)
+        for part, what in (("c", "data 1 x space 2, the split head"),
+                           ("f", "SSD, data 1 x space 2, the gathered "
+                                 "head")):
+            b1, b2 = torch.load(os.path.join(tmp,
+                                             f"{part}_k1_input_rank0.pt"))
+            checks.append({"input": f"sharding ({part}): rank 0's last "
+                                    f"assignment input, {what}",
+                           **check_kernel(KERNELS[0], b1.to(device),
+                                          b2.to(device), reps,
+                                          identical=False)})
     d = r0["d"]
     if d["shape"] != [ASSIGN_SHAPE[1], OVERLAP_BOXES] or not (
             d["within_tolerance"] and d["finite"]):
@@ -6048,11 +6312,33 @@ def phase_sharding(seed: int, reps: int, smi: str) -> tuple[int, list]:
             raise AssertionError(f"K1 differs from its plain version on "
                                  f"{c['input']}: {c['max_abs_err']}")
     seconds["phase"] = time.perf_counter() - t_phase
+    emit({"phase": "sharding_split_heads", "card": smi, **{
+        name: {"config": os.path.relpath(config, ROOT),
+               "head_columns": result[part]["head_columns"],
+               "start_bytes": result[part]["start_bytes"],
+               "peak_bytes": result[part]["peak_bytes"],
+               "one_process_start_bytes":
+                   result[part]["one_process_start_bytes"],
+               "one_process_peak_bytes":
+                   result[part]["one_process_peak_bytes"],
+               "largest_forward_transients": result[part]["transients"],
+               "one_process_largest_forward_transients":
+                   result[part]["one_process_transients"],
+               "forward_flops_batch1": result[part]["forward_flops"],
+               "one_process_forward_flops_batch1":
+                   result[part]["one_process_forward_flops"],
+               "steady_step_ms": {k: v[-1] for k, v in
+                                  result[part]["step_ms"].items()}}
+        for name, part, config in (("c_retinanet", "c", CONFIG),
+                                   ("e_fcos", "e", FCOS_CONFIG))}})
     emit({"phase": "sharding", "config": os.path.relpath(CONFIG, ROOT),
           "card": smi, "seconds": seconds, "a_world1_nccl_fsdp": a,
           "b_fsdp_two_gloo_ranks": result["b"],
           "c_space_two_gloo_ranks": result["c"],
-          "d_sharded_overlaps": d, "kernel_launches": launches,
+          "d_sharded_overlaps": d,
+          "e_fcos_space_two_gloo_ranks": result["e"],
+          "f_ssd_space_two_gloo_ranks": result["f"],
+          "kernel_launches": launches,
           "kernel_on_assignment_inputs": checks})
     return launches, checks
 

@@ -15,6 +15,14 @@ with ``min_pos_iou=0.0`` a valid gt whose best overlap is 0 claims every
 anchor it has overlap 0 with: mmdet's behaviour, kept by the JAX package and
 kept here.
 
+Over the ranks of a "space" axis (``group``: each rank holds the overlaps of
+its own anchors, ``parallel/sharding.py:partition_spatially``) everything is
+per anchor but ``gt_max``, each gt's best overlap over *every* anchor: one
+all-reduce MAX of the (..., G) maxima over the group, which is exact, so the
+ranks' joined result is one process's. Only the rescue that claims every
+anchor equal to the maximum (``gt_max_assign_all``) splits so; the argmax
+branch (SSD's) raises on a group of several ranks.
+
 Everything works on the last two axes, so one call assigns a whole batch:
 ``overlaps`` (..., G, N), ``gt_mask`` and ``gt_labels`` (..., G). No size
 depends on the data, so nothing here waits for the device. The JAX package
@@ -29,6 +37,9 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.distributed import group_max
 
 
 class AssignResult(NamedTuple):
@@ -54,8 +65,14 @@ class MaxIoUAssigner:
         overlaps: torch.Tensor,      # (..., G, N) gt x anchors
         gt_mask: torch.Tensor,       # (..., G) bool validity of padded gts
         gt_labels: torch.Tensor | None = None,  # (..., G) integer
+        group=None,  # the "space" ranks that hold the other anchors
     ) -> AssignResult:
         g = overlaps.shape[-2]
+        split = group is not None and dist.get_world_size(group) > 1
+        if split and self.match_low_quality and not self.gt_max_assign_all:
+            raise ValueError("gt_max_assign_all=False takes each gt's argmax "
+                             "anchor, which one rank of a split head cannot "
+                             "know; run such a head gathered")
         # Padded gts read as zero overlap, so with no valid gt every anchor
         # falls in [0, neg_thr) -> background. -1 stays reserved for ignore.
         overlaps = torch.where(gt_mask[..., None], overlaps, 0.0)
@@ -63,6 +80,8 @@ class MaxIoUAssigner:
         # both argmax calls return the first maximum, as jnp.argmax does
         max_overlaps, argmax_overlaps = overlaps.max(dim=-2)     # (..., N)
         gt_max = overlaps.amax(dim=-1)                           # (..., G)
+        if split:
+            gt_max = group_max(gt_max, group)
 
         if isinstance(self.neg_iou_thr, tuple):
             neg_lo, neg_hi = self.neg_iou_thr

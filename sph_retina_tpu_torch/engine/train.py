@@ -256,8 +256,10 @@ def run_step(optimizer: SGDOptimizer, compute: Callable[[], tuple]) -> dict:
     ``DistributedDataParallel``: Faster R-CNN's RoI head and OHEM's forward
     run outside ``model(...)``, frozen parameters have no gradient, and the
     module's names stay those a checkpoint of one process has. Where several
-    ranks compute the same loss (a "space" axis), each backpropagates its
-    share, ``total / loss_replicas()``; parameters sharded by
+    ranks compute the same loss (a head gathered over "space"), each
+    backpropagates its share, ``total / loss_replicas()``; where each
+    computes its own part of it (a split head), its part whole; parameters
+    sharded by
     ``shard_state_fsdp`` had their gradients reduce-scattered in the
     backward pass, and ``all_reduce_gradients`` leaves them out."""
     optimizer.zero_grad()

@@ -5,7 +5,8 @@ A family adapter exposes ``build(cfg_dict) -> (module, detector config)``,
 ``predict_module(model, cfg) -> PredictModule`` (the predict path as one
 module, what ``export.py`` exports) and ``predict_fn(model, cfg) ->
 f(images) -> NMSResult`` (that module on the model's device, without
-gradients);
+gradients; on a model partitioned over "space", whole images, of which each
+rank takes its columns);
 ``make_generic_train_step`` serves every family: RetinaNet, FCOS, SSD and
 the two-stage Faster R-CNN, whose loss draws its RoI sample from the
 generator.
@@ -25,6 +26,7 @@ from ..models.fcos import SphFCOS, fcos_config, fcos_loss, fcos_predict
 from ..models.single_stage import retina_loss, retina_predict
 from ..models.ssd import SphSSD, ssd_config, ssd_loss, ssd_predict
 from ..parallel import get_data_rank
+from ..parallel.sharding import head_part, split_head, whole_levels
 from .train import SGDOptimizer, run_step, total_loss
 
 
@@ -96,9 +98,14 @@ class _Family:
         module = cls.predict_module(model, cfg)
         device = _device_of(model)
 
+        axis = getattr(model, "space_axis", None)
+
         @torch.no_grad()
         def f(images):
-            return NMSResult(*module(images.to(device)))
+            images = images.to(device)
+            if axis is not None:
+                images = axis.columns(images)
+            return NMSResult(*module(images))
 
         return f
 
@@ -114,13 +121,26 @@ class RetinaNetFamily(_Family):
 
     @staticmethod
     def loss_fn(model, cfg):
-        anchors = cfg.flat_anchors(_device_of(model))
+        """On a head split over "space" (partitioned before this call), the
+        rank's own outputs and anchors (``HeadPart``)."""
+        device = _device_of(model)
+        anchors, axis = cfg.flat_anchors(device), split_head(model)
+        split = {}
+        if axis is not None:
+            part = head_part(cfg.featmap_sizes(),
+                             cfg.anchor_generator.num_base_anchors,
+                             axis.size, axis.index, device)
+            anchors = anchors[part.indices]
+            split = {"group": axis.group, "anchor_index": part.indices}
 
         def f(batch, generator=None):
             del generator  # only Faster R-CNN's RoI sampler draws from it
             cls, reg = model(batch["images"])
+            if axis is not None:
+                cls, reg = part.keep(cls), part.keep(reg)
             losses = retina_loss(cfg, cls, reg, anchors, batch["gt_boxes"],
-                                 batch["gt_labels"], batch["gt_mask"])
+                                 batch["gt_labels"], batch["gt_mask"],
+                                 **split)
             return total_loss(losses), losses
 
         return f
@@ -132,7 +152,7 @@ class RetinaNetFamily(_Family):
 
     @staticmethod
     def head(model, cfg, images, level_anchors):
-        cls, reg = model(images)
+        cls, reg = whole_levels(model, model(images), cfg.featmap_sizes())
         return retina_predict(cfg, cls, reg, level_anchors)
 
 
@@ -154,11 +174,21 @@ class FCOSFamily(_Family):
 
     @staticmethod
     def loss_fn(model, cfg):
-        level_points = cfg.level_points(_device_of(model))
+        """On a head split over "space", the rank's own outputs and points
+        (``HeadPart``), joined as one level."""
+        device = _device_of(model)
+        level_points, axis = cfg.level_points(device), split_head(model)
+        if axis is not None:
+            part = head_part(cfg.featmap_sizes(), 1, axis.size, axis.index,
+                             device)
+            level_points = tuple([torch.cat(x)[part.indices]]
+                                 for x in level_points)
 
         def f(batch, generator=None):
             del generator
             cls, reg, ctr = model(batch["images"])
+            if axis is not None:
+                cls, reg, ctr = (part.keep(y) for y in (cls, reg, ctr))
             losses = fcos_loss(cfg, cls, reg, ctr, batch["gt_boxes"],
                                batch["gt_labels"], batch["gt_mask"],
                                level_points)
@@ -172,7 +202,8 @@ class FCOSFamily(_Family):
 
     @staticmethod
     def head(model, cfg, images, points):
-        cls, reg, ctr = model(images)
+        cls, reg, ctr = whole_levels(model, model(images),
+                                     cfg.featmap_sizes())
         return fcos_predict(cfg, cls, reg, ctr, (points,))
 
 

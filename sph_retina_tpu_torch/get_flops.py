@@ -20,6 +20,10 @@ the card equals the count on the CPU):
   view, once an operation — the traffic of the eager program, not of a
   fused one.
 
+Where the detector has a ``bbox_head`` (RetinaNet, FCOS, SSD), the head's
+FLOPs are counted apart too, on the inputs the forward gave it: the share a
+split over "space" divides (``parallel/sharding.py``).
+
 The JAX tool reads XLA's cost analysis of the compiled forward. The two
 counts differ where XLA's does: it counts a type conversion as 1 FLOP an
 element and, on the CPU, each bf16 operation as an f32 one between two
@@ -205,8 +209,13 @@ def main(argv=None) -> int:
     model = model.to(device).eval()
     n_params = sum(p.numel() for p in model.parameters())
     images = torch.zeros((args.batch, h, w, 3), device=device)
+    head = getattr(model, "bbox_head", None)
+    feats = []
+    if head is not None:
+        head.register_forward_pre_hook(lambda m, a: feats.append(a))
     with torch.no_grad():
         count = count_flops(model, images)
+        head_count = count_flops(head, *feats[0]) if feats else None
 
     print(f"config:     {os.path.basename(args.config)}")
     print(f"input:      ({args.batch}, {h}, {w}, 3)")
@@ -215,6 +224,9 @@ def main(argv=None) -> int:
           f"in-bounds conv taps, 2 a MAC; 1 a pointwise element)")
     print(f"hbm bytes:  {_fmt(count.bytes, 'B')} (each eager op's inputs "
           f"and outputs once)")
+    if head_count is not None:
+        print(f"head:       {_fmt(head_count.total, 'FLOPs')} "
+              f"({100 * head_count.total / count.total:.1f} % of the forward)")
     return 0
 
 

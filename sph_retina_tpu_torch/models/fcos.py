@@ -46,7 +46,25 @@ class Scale(nn.Module):
         return x * self.weight
 
 
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm``; on a head split over "space" (``space``, set by
+    ``parallel.sharding.partition_spatially``) with its statistics over
+    every rank's columns."""
+
+    space = None
+
+    def forward(self, x):
+        if self.space is not None:
+            return self.space.group_norm(self, x)
+        return super().forward(x)
+
+
 class SphFCOSHead(nn.Module):
+    # each point's outputs and loss need only its own cell's neighbourhood
+    # (and the GroupNorms' statistics, all-reduced): the head splits over
+    # "space" (``parallel/sharding.py``)
+    splits_over_space = True
+
     def __init__(self, num_classes: int, box_version: int = 4,
                  in_channels: int = 256, feat_channels: int = 256,
                  stacked_convs: int = 4, num_levels: int = 5):
@@ -60,7 +78,7 @@ class SphFCOSHead(nn.Module):
                 self.add_module(f"{tower}_conv_{i}",
                                 Conv2d(c, feat_channels, 3, 1, 1, bias=False))
                 self.add_module(f"{tower}_gn_{i}",
-                                nn.GroupNorm(32, feat_channels, eps=GN_EPS))
+                                GroupNorm(32, feat_channels, eps=GN_EPS))
         self.conv_cls = Conv2d(feat_channels, num_classes, 3, 1, 1)
         self.conv_reg = Conv2d(feat_channels, box_version, 3, 1, 1)
         self.conv_centerness = Conv2d(feat_channels, 1, 3, 1, 1)

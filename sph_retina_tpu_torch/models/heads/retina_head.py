@@ -22,6 +22,10 @@ from ..resnet import Conv2d
 
 
 class SphRetinaHead(nn.Module):
+    # each anchor's outputs and loss need only its own cell's neighbourhood:
+    # the head splits over "space" (``parallel/sharding.py``)
+    splits_over_space = True
+
     def __init__(self, num_classes: int, box_version: int = 4,
                  in_channels: int = 256, feat_channels: int = 256,
                  stacked_convs: int = 4, num_base_priors: int = 9):

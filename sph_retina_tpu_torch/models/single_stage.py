@@ -26,6 +26,8 @@ import math
 from typing import Callable, NamedTuple, Sequence
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 from torch import nn
 
 from ..boxes.anchors import SphAnchorGenerator
@@ -36,6 +38,7 @@ from ..iou.api import canonical_backend, sph_overlaps
 from ..losses import sigmoid_focal_loss, sph_l1_loss
 from ..ops.sph2pob_iou import sph2pob_iou_pairwise
 from ..parallel import global_count
+from ..parallel.distributed import group_gather, group_sum
 from .fpn import FPN
 from .heads.retina_head import SphRetinaHead
 from .resnet import ResNet, seeded_init_
@@ -176,11 +179,14 @@ def anchor_targets(
     gt_boxes: torch.Tensor,       # (B, G, D) degrees, padded
     gt_labels: torch.Tensor,      # (B, G) integer
     gt_mask: torch.Tensor,        # (B, G) bool
+    group=None,
 ) -> AnchorTargets:
     """Assignment and regression targets of the whole batch at once; no
-    gradient flows into them."""
+    gradient flows into them. ``anchors`` may be one "space" rank's own
+    (``group``: the ranks that hold the others, whose overlaps the
+    assigner's low-quality rescue reads)."""
     overlaps = _batch_pairwise_iou(gt_boxes, anchors, cfg.assign_backend)
-    res = cfg.assigner(overlaps, gt_mask, gt_labels)
+    res = cfg.assigner(overlaps, gt_mask, gt_labels, group=group)
     pos = res.gt_inds > 0
     neg = res.gt_inds == 0
     g, d = gt_boxes.shape[1:]
@@ -200,6 +206,33 @@ def anchor_targets(
     )
 
 
+def _pos_gather(weights: torch.Tensor, k: int, group=None,
+                rows: torch.Tensor | None = None) -> tuple:
+    """The ``k`` rows of the highest ``weights``, ties to the lower row, as
+    ``jax.lax.top_k`` keeps them: their indices and weights. Over the ranks
+    of a split head (``group``; ``rows``: each local row's place among one
+    process's), the ranks keep one process's ``k`` rows together: each takes
+    its local top ``k`` (a local row's order is its place's), the ranks'
+    are gathered (S x ``k`` weights and places), and the weights of the
+    rows that are not among the ``k`` first of them all are set to 0."""
+    idx = torch.sort(weights, descending=True, stable=True).indices[:k]
+    weights = weights[idx]
+    if group is None or dist.get_world_size(group) == 1:
+        return idx, weights
+    pad = k - idx.numel()
+    every = group_gather(torch.stack([
+        F.pad(weights.double(), (0, pad), value=-math.inf),
+        F.pad(rows[idx].double(), (0, pad), value=math.inf)]), group)
+    value, place = every[:, 0].reshape(-1), every[:, 1].reshape(-1)
+    order = torch.sort(place, stable=True).indices
+    order = order[torch.sort(value[order], descending=True,
+                             stable=True).indices]
+    kept = torch.zeros_like(value, dtype=torch.bool)
+    kept[order[:k]] = True
+    mine = kept.reshape(-1, k)[dist.get_rank(group), :idx.numel()]
+    return idx, torch.where(mine, weights, 0.0)
+
+
 def retina_loss(
     cfg: DetectorConfig,
     cls_scores: Sequence[torch.Tensor],   # per level (B, n_l, C)
@@ -208,13 +241,21 @@ def retina_loss(
     gt_boxes: torch.Tensor,
     gt_labels: torch.Tensor,
     gt_mask: torch.Tensor,
+    group=None,
+    anchor_index: torch.Tensor | None = None,
 ) -> dict:
     """Losses of one batch as 0-dim tensors: ``loss_cls``, ``loss_bbox`` and,
     where the positive gather is on, the gradient-free count
-    ``metric_pos_dropped``."""
+    ``metric_pos_dropped``.
+
+    On a head split over "space" (``group``: its ranks), the outputs and
+    ``anchors`` are this rank's own (``anchor_index``: their places among
+    one process's) and the loss is its part of the sum. The positive gather
+    keeps one process's rows over the ranks together (``_pos_gather``), and
+    the group's first rank reports ``metric_pos_dropped``."""
     cls = torch.cat(list(cls_scores), dim=1).float()   # (B, N, C)
     reg = torch.cat(list(bbox_preds), dim=1).float()   # (B, N, D)
-    t = anchor_targets(cfg, anchors, gt_boxes, gt_labels, gt_mask)
+    t = anchor_targets(cfg, anchors, gt_boxes, gt_labels, gt_mask, group)
     # positives of the global batch: summed over the ranks
     num_total = global_count(t.num_pos).clamp(min=1).to(torch.float32)
 
@@ -232,18 +273,26 @@ def retina_loss(
         preds = cfg.bbox_coder.decode(anchors[None], reg).reshape(-1, d)
         targets = t.bbox_targets.reshape(-1, d)
         weights = t.bbox_weights.reshape(-1)
-        k = min(b * cfg.loss_pos_topk, b * n) if cfg.loss_pos_topk else 0
         pos_dropped = None
-        if 0 < k < b * n:
+        # one process's anchors: every rank's on a split head
+        n_all = n if group is None else cfg.anchor_generator.num_base_anchors \
+            * sum(h * w for h, w in cfg.featmap_sizes())
+        if 0 < cfg.loss_pos_topk < n_all:
             # Positive-gather: the loss only sees the K highest-weight
             # anchors — exact only while positives <= K. A breach truncates
             # the regression loss, so it is surfaced as metric_pos_dropped
             # in the logged metrics (0 in any healthy run; excluded from the
-            # optimised total). Which of several equal weights torch.topk
-            # picks does not matter: the loss is a sum over the picked rows.
-            pos_dropped = ((weights > 0).sum() - k).clamp(min=0).to(
-                torch.float32)
-            weights, idx = torch.topk(weights, k)
+            # optimised total).
+            k = b * cfg.loss_pos_topk
+            pos_dropped = (group_sum((weights > 0).sum(), group) - k).clamp(
+                min=0).to(torch.float32)
+            rows = None
+            if group is not None:
+                rows = (torch.arange(b, device=reg.device)[:, None] * n_all
+                        + anchor_index).reshape(-1)
+                if dist.get_rank(group) > 0:
+                    pos_dropped = torch.zeros_like(pos_dropped)
+            idx, weights = _pos_gather(weights, k, group, rows)
             preds = preds[idx]
             targets = targets[idx]
         loss_bbox = cfg.loss_bbox(preds, targets, weights,

@@ -8,8 +8,9 @@ assembled. Its ``replicate_to_mesh`` is ``broadcast_parameters`` here (the
 JAX function assumes the processes start alike; a broadcast from rank 0
 makes sure of it). ``sharding.py``: the ("data", "space") mesh, ZeRO-3
 state sharding, the width-sharded backbone and neck with their halo
-exchange (``partition_spatially``: what GSPMD does for the JAX package from
-the shardings alone) and the row-sharded pairwise overlaps.
+exchange and the split RetinaNet and FCOS heads (``partition_spatially``:
+what GSPMD does for the JAX package from the shardings alone) and the
+row-sharded pairwise overlaps.
 """
 
 from .distributed import (
@@ -34,6 +35,7 @@ from .sharding import (
     batch_specs,
     fsdp_dims,
     fsdp_spec,
+    head_part,
     make_mesh,
     partition_spatially,
     shard_batch_spatial,
@@ -66,6 +68,7 @@ __all__ = [
     "fsdp_dims",
     "shard_state_fsdp",
     "partition_spatially",
+    "head_part",
     "window_halo",
     "sharded_pairwise_overlaps",
 ]

@@ -25,12 +25,16 @@ all-reduce still runs in a group of one: a sum over one rank). Every wait is
 bounded: the group's timeout bounds its collectives, and
 ``coordination_barrier`` takes its own.
 
-Where several ranks compute the loss of one shard of the batch (the ranks of
-a "space" axis, ``parallel/sharding.py:partition_spatially``), the loss
-normalisers and the logged metrics are summed over the *data* group only
-(``set_data_axis``), each of those ranks scales its loss by one over their
-number before the backward pass (``loss_replicas``), and the gradients are
-still summed over every rank.
+The ranks of a "space" axis (``parallel/sharding.py:partition_spatially``)
+share one shard of the batch, which they read by their rank in the *data*
+group (``set_data_axis``). Where each of them computes a disjoint part of
+the loss (the split heads of RetinaNet and FCOS: each rank its own anchors
+or points), the loss normalisers and the logged metrics are summed over
+every rank and the loss is not scaled. Where each of them computes the
+whole loss of the shard (the gathered heads of SSD and Faster R-CNN), they
+are summed over the data group only, each of those ranks scales its loss by
+one over their number before the backward pass (``loss_replicas``). The
+gradients are summed over every rank in both cases.
 """
 
 from __future__ import annotations
@@ -59,17 +63,22 @@ def get_world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-# the group loss normalisers and metrics are summed over (None: every rank),
-# and how many ranks compute each shard's loss
-_DATA_AXIS = {"group": None, "replicas": 1}
+# the group whose rank picks the batch shard, how many ranks compute each
+# shard's loss, and the group loss normalisers and metrics sum over (None:
+# every rank)
+_DATA_AXIS = {"group": None, "replicas": 1, "count_group": None}
 
 
-def set_data_axis(group=None, replicas: int = 1) -> None:
-    """Sum loss normalisers and metrics over ``group`` (None: every rank),
-    and have each of the ``replicas`` ranks that compute the same loss
-    scale it by ``1 / replicas`` in ``engine/train.py:run_step``. The
-    default, ``(None, 1)``, is plain data parallelism."""
-    _DATA_AXIS.update(group=group, replicas=int(replicas))
+def set_data_axis(group=None, replicas: int = 1, count_group=None) -> None:
+    """The ranks of ``group`` (None: every rank) read different shards of
+    the batch (``get_data_rank``); ``replicas`` ranks compute each shard's
+    loss and scale it by ``1 / replicas`` in ``engine/train.py:run_step``
+    (a head gathered over "space": each of them the whole loss); loss
+    normalisers and metrics sum over ``count_group`` (None: every rank),
+    the ranks whose losses are disjoint parts of the batch's. The default,
+    ``(None, 1, None)``, is plain data parallelism."""
+    _DATA_AXIS.update(group=group, replicas=int(replicas),
+                      count_group=count_group)
 
 
 def loss_replicas() -> int:
@@ -77,10 +86,10 @@ def loss_replicas() -> int:
     return _DATA_AXIS["replicas"]
 
 
-def _data_group_size() -> int:
+def _count_group_size() -> int:
     if not dist.is_initialized():
         return 1
-    return dist.get_world_size(_DATA_AXIS["group"])
+    return dist.get_world_size(_DATA_AXIS["count_group"])
 
 
 def get_data_rank() -> int:
@@ -229,13 +238,43 @@ def global_count(x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the ranks: a loss normaliser (a number of positives
     or of samples) over the global batch. No gradient flows through it. The
     identity without a group or in a group of one. Every rank must call it
-    at the same point of its step, whatever its data. Over the data group
-    (``set_data_axis``): the ranks of a "space" axis count their shard
-    once."""
-    if _data_group_size() == 1:
+    at the same point of its step, whatever its data. Over the count group
+    of ``set_data_axis``."""
+    if _count_group_size() == 1:
         return x
     y = _on_backend(x.detach().clone())
-    dist.all_reduce(y, group=_DATA_AXIS["group"])
+    dist.all_reduce(y, group=_DATA_AXIS["count_group"])
+    return y.to(x.device)
+
+
+@torch.no_grad()
+def group_max(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``'s elementwise maximum over the ranks of ``group`` (exact: a
+    maximum of floats rounds nothing). The identity where ``group`` is None
+    or of one rank. No gradient."""
+    return _group_reduce(x, group, dist.ReduceOp.MAX)
+
+
+@torch.no_grad()
+def group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group``, as ``group_max``."""
+    return _group_reduce(x, group, dist.ReduceOp.SUM)
+
+
+def group_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's ``x`` stacked on a new leading axis, in group order."""
+    n = dist.get_world_size(group)
+    src = _on_backend(x.contiguous())
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.reshape((n,) + tuple(x.shape)).to(x.device)
+
+
+def _group_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    y = _on_backend(x.detach().clone())
+    dist.all_reduce(y, op=op, group=group)
     return y.to(x.device)
 
 
@@ -243,15 +282,16 @@ def global_metrics(metrics: dict) -> dict:
     """Each 0-dim metric summed over the ranks (the ranks' losses, each
     normalised by global counts, sum to the global batch's loss), in one
     all-reduce, as float32 on the first metric's device. Unchanged without
-    a group or in a group of one. Over the data group, as ``global_count``."""
-    if _data_group_size() == 1 or not metrics:
+    a group or in a group of one. Over the count group of
+    ``set_data_axis``."""
+    if _count_group_size() == 1 or not metrics:
         return metrics
     keys = list(metrics)
     device = torch.as_tensor(metrics[keys[0]]).device
     flat = torch.stack([torch.as_tensor(metrics[k], device=device).detach()
                         .to(torch.float32).reshape(()) for k in keys])
     flat = _on_backend(flat)
-    dist.all_reduce(flat, group=_DATA_AXIS["group"])
+    dist.all_reduce(flat, group=_DATA_AXIS["count_group"])
     flat = flat.to(device)
     return dict(zip(keys, flat.unbind()))
 

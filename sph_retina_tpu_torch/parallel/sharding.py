@@ -26,13 +26,32 @@ runs its part eagerly and the collectives are explicit:
   (zeros, ``-inf`` for a max-pool, at the ends of the chart: ERP padding is
   not circular); 1x1 convs, batch norms, L2Norm and FPN's nearest 2x
   upsample are exact on the local columns. A level whose width does not
-  split evenly, or whose columns are fewer than a halo, is gathered whole,
-  computed on every space rank, and split again where its output divides.
-  The neck's outputs are gathered along the width; each space rank runs the
-  head, the assignment and the loss on the whole maps, scales its loss by
-  ``1 / space``, and the gradients are summed over every rank.
+  split evenly, or whose columns are fewer than a halo, is narrow: gathered
+  whole, computed on every space rank, and split again where its output
+  divides.
+- **The split heads** (those that declare ``splits_over_space``:
+  RetinaNet's and FCOS's): the neck's outputs stay on each rank's columns,
+  and the head runs there too: its 3x3 convs, shared over the levels, take
+  their halos level by level, and FCOS's GroupNorm takes its statistics
+  over every rank's columns. A narrow level (P7 at 64x128 over 2 ranks) is
+  computed whole on every rank, and the first space rank owns its anchors.
+  Each rank assigns and scores only the anchors or points it owns
+  (``head_part``): K1 runs at ``(B * G, N_rank)``; the assigner's each-gt
+  maximum is an all-reduce MAX over "space"; the decoded-box positive
+  gather keeps one process's rows over the ranks together; loss
+  normalisers and metrics sum over every rank, and the loss is not scaled.
+  A predict gathers the head's per-level outputs along the width before
+  its top-k (``whole_levels``), so that it gives one process's detections.
+- **The gathered heads** (SSD, whose hard-negative mining ranks each
+  image's negatives over all its anchors, and Faster R-CNN, whose RoIAlign
+  reads whole maps): the neck's outputs are gathered along the width; each
+  space rank runs the head, the assignment and the loss on the whole maps,
+  scales its loss by ``1 / space``; normalisers and metrics sum over
+  "data".
 
-Every gather, halo and reduce-scatter goes through the group's backend
+Gradients are summed over every rank in both cases. A predict on a
+partitioned model takes whole images, as one process's, and cuts its own
+columns. Every gather, halo and reduce-scatter goes through the group's backend
 (gloo: via the host).
 """
 
@@ -47,7 +66,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.modules.utils import _pair
 
-from .distributed import _on_backend, get_world_size, set_data_axis
+from .distributed import (
+    _on_backend,
+    get_world_size,
+    group_gather,
+    set_data_axis,
+)
 
 DATA_AXIS = "data"
 SPACE_AXIS = "space"
@@ -132,15 +156,6 @@ def shard_batch_spatial(batch: dict, mesh) -> dict:
 # --------------------------------------------------------------------------- #
 # collectives (through the host on gloo)
 # --------------------------------------------------------------------------- #
-def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's ``t`` stacked on a new leading axis, in group order."""
-    n = dist.get_world_size(group)
-    src = _on_backend(t.contiguous())
-    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-    dist.all_gather_into_tensor(out, src, group=group)
-    return out.reshape((n,) + tuple(t.shape)).to(t.device)
-
-
 def _reduce_scatter(stacked: torch.Tensor, group) -> torch.Tensor:
     """``stacked`` (group size, ...) summed over the ranks; this rank's
     entry."""
@@ -208,7 +223,7 @@ def _gather_flat(shards: list, specs: list) -> list:
     """The whole tensors of ``shards`` (all over one group), by one flat
     all-gather."""
     flat = torch.cat([s.reshape(-1) for s in shards])
-    got = _all_gather(flat, specs[0].group)
+    got = group_gather(flat, specs[0].group)
     fulls, off = [], 0
     for s, spec in zip(shards, specs):
         pieces = got[:, off:off + s.numel()].reshape((spec.size,)
@@ -447,7 +462,7 @@ class _Halo(torch.autograd.Function):
     def forward(ctx, x, left, right, fill, axis):
         ctx.meta = (left, right, axis)
         w, r = x.shape[-1], axis.index
-        got = _all_gather(torch.cat([x[..., :right], x[..., w - left:]], -1),
+        got = group_gather(torch.cat([x[..., :right], x[..., w - left:]], -1),
                           axis.group)
         pad_l = got[r - 1][..., right:] if r > 0 \
             else torch.full_like(x[..., :left], fill)
@@ -459,7 +474,7 @@ class _Halo(torch.autograd.Function):
     def backward(ctx, g):
         left, right, axis = ctx.meta
         w, r = g.shape[-1] - left - right, axis.index
-        got = _all_gather(torch.cat([g[..., :left], g[..., left + w:]], -1),
+        got = group_gather(torch.cat([g[..., :left], g[..., left + w:]], -1),
                           axis.group)
         gx = g[..., left:left + w].clone()
         if r < axis.size - 1 and left:
@@ -476,7 +491,7 @@ class _WidthGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
         ctx.axis = axis
-        return _like(torch.cat(_all_gather(x, axis.group).unbind(0), -1), x)
+        return _like(torch.cat(group_gather(x, axis.group).unbind(0), -1), x)
 
     @staticmethod
     def backward(ctx, g):
@@ -485,20 +500,126 @@ class _WidthGather(torch.autograd.Function):
                                      axis.group), g), None
 
 
+class _GroupNormalize(torch.autograd.Function):
+    """GroupNorm's ``(x - mean) / sqrt(var + eps)`` over each sample's
+    channel groups and every space rank's columns, in fp32: the mean, then
+    the centred sum of squares (two passes, each an all-reduce over
+    "space"); the backward all-reduces the statistics' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, groups, eps, axis):
+        xg = x.float().reshape(x.shape[0], groups, -1)
+        n = xg.shape[-1] * axis.size
+        mean = _all_reduce(xg.sum(-1), axis.group) / n
+        d = xg - mean[..., None]
+        rstd = torch.rsqrt(_all_reduce(d.square().sum(-1), axis.group) / n
+                           + eps)
+        xhat = d * rstd[..., None]
+        ctx.save_for_backward(xhat, rstd)
+        ctx.axis = axis
+        return _like(xhat.reshape(x.shape).to(x.dtype), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        xhat, rstd = ctx.saved_tensors
+        axis = ctx.axis
+        gg = g.float().reshape(xhat.shape)
+        n = xhat.shape[-1] * axis.size
+        sums = _all_reduce(torch.stack([gg.sum(-1), (gg * xhat).sum(-1)]),
+                           axis.group) / n
+        dx = (gg - sums[0][..., None] - xhat * sums[1][..., None]) \
+            * rstd[..., None]
+        return _like(dx.reshape(g.shape).to(g.dtype), g), None, None, None
+
+
+class HeadPart(NamedTuple):
+    """One space rank's part of a split head: whether it keeps each level's
+    outputs (``levels``: a split level's columns, or a narrow level it
+    owns), the rows each kept level has on this rank (``rows``), and the
+    indices of its anchors or points in the flat ``(level, h, w, a)`` order
+    (``indices``), in the order of its kept outputs joined."""
+
+    levels: tuple
+    rows: tuple
+    indices: torch.Tensor
+
+    def keep(self, outputs) -> list:
+        """The kept levels of a head output (a list of per-level
+        ``(B, rows, ...)`` tensors). The levels it drops (narrow ones that
+        another rank owns) stay tied to the first kept one with a zero
+        gradient: their backward, and the collectives of the neck's
+        gathers in it, runs on every rank alike."""
+        kept = [y for y, k in zip(outputs, self.levels) if k]
+        if [y.shape[1] for y in kept] != list(self.rows) or not kept:
+            raise ValueError(f"head outputs of {[y.shape[1] for y in kept]} "
+                             f"rows where this rank owns {list(self.rows)}")
+        dropped = [y for y, k in zip(outputs, self.levels) if not k]
+        if dropped and torch.is_grad_enabled():
+            kept[0] = _Tie.apply(kept[0], *dropped)
+        return kept
+
+
+class _Tie(torch.autograd.Function):
+    """``x`` itself; ``others`` take a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, x, *others):
+        ctx.others = [(o.shape, o.dtype, o.device) for o in others]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(shape, dtype=dtype, device=device)
+                     for shape, dtype, device in ctx.others))
+
+
+def head_part(featmap_sizes, per_cell: int, size: int, index: int,
+              device=None) -> HeadPart:
+    """Space rank ``index`` of ``size``: its anchors (``per_cell`` a cell:
+    RetinaNet's A) or points (1: FCOS) of levels of ``featmap_sizes`` (each
+    ``(H, W)``, whole). A level whose width divides by ``size`` is split:
+    the rank owns its ``W / size`` columns, each row's in ``(h, w, a)``
+    order, as its head's ``(B, H * w * A, C)`` outputs hold them. A narrow
+    level is whole on every rank and owned by rank 0 alone, so that every
+    anchor enters one rank's loss, once. No collective."""
+    levels, rows, indices, off = [], [], [], 0
+    for h, w in featmap_sizes:
+        if w % size == 0:
+            cols = w // size
+            cells = (torch.arange(h)[:, None] * w + index * cols
+                     + torch.arange(cols)).reshape(-1)
+        else:
+            cells = torch.arange(h * w) if index == 0 else None
+        levels.append(cells is not None)
+        if cells is not None:
+            rows.append(cells.numel() * per_cell)
+            indices.append(off + (cells[:, None] * per_cell
+                                  + torch.arange(per_cell)).reshape(-1))
+        off += h * w * per_cell
+    flat = torch.cat(indices) if indices else torch.zeros(0, dtype=torch.long)
+    return HeadPart(tuple(levels), tuple(rows), flat.to(device))
+
+
 class SpaceAxis:
     """The "space" axis of a partitioned model: its group, this rank's
     index, and the shape plan of each global input size (``plans``: each
     windowed op's, each FPN upsample's and each neck output's global input
-    width, recorded once by a forward of the backbone and the neck on fake
-    tensors of the whole width). A tensor of global width ``g`` is split
-    over the ranks where ``g`` divides by their number, else whole on each."""
+    width, recorded once by a forward on fake tensors of the whole width;
+    with a split ``head``, each of its calls' too, keyed by the op and the
+    call's place among that op's calls in the forward, since the head's ops
+    are shared over the levels). A tensor of global width ``g`` is split
+    over the ranks where ``g`` divides by their number, else whole on
+    each."""
 
-    def __init__(self, mesh, backbone: nn.Module, neck: nn.Module):
+    def __init__(self, mesh, backbone: nn.Module, neck: nn.Module,
+                 head: nn.Module | None = None):
         self.size = _size(mesh, SPACE_AXIS)
         self.index = mesh.get_local_rank(SPACE_AXIS)
         self.group = mesh.get_group(SPACE_AXIS)
-        self.backbone, self.neck = backbone, neck
+        self.backbone, self.neck, self.head = backbone, neck, head
+        self._shared = set() if head is None else set(head.modules())
         self.plans, self.plan, self.recording = {}, None, False
+        self.calls = {}
 
     # hooks -------------------------------------------------------------- #
     def begin(self, backbone, args):
@@ -511,13 +632,22 @@ class SpaceAxis:
             self.plans[key] = self._record(x, key[1])
         self.plan = self.plans[key]
 
+    def head_begin(self, head, args):
+        """A split head's forward pre-hook: its calls counted afresh."""
+        self.calls = {}
+
     def outputs(self, neck, args, outs):
-        """The neck's forward hook: its split outputs gathered whole."""
+        """The neck's forward hook: its split outputs gathered whole for a
+        gathered head; kept on this rank's columns for a split one."""
         if self.recording:
             for i, y in enumerate(outs):
                 self.plan[("out", i)] = y.shape[-1]
             return None
         widths = [self.plan[("out", i)] for i in range(len(outs))]
+        if self.head is not None:
+            for y, g in zip(outs, widths):
+                (self._local if self._split(g) else self._whole)(y, g)
+            return None
         return type(outs)(self.gather(y, g) if self._split(g)
                           else self._whole(y, g)
                           for y, g in zip(outs, widths))
@@ -529,21 +659,33 @@ class SpaceAxis:
         self.recording = _RECORDING[0] = True
         try:
             with torch.no_grad(), FakeTensorMode(allow_non_fake_inputs=True):
-                self.neck(self.backbone(torch.empty(
+                feats = self.neck(self.backbone(torch.empty(
                     tuple(x.shape[:-1]) + (width,), dtype=x.dtype,
                     device=x.device)))
+                if self.head is not None:
+                    self.head(feats)
         finally:
             self.recording = _RECORDING[0] = False
         return plan
+
+    def _key(self, m):
+        """A backbone's or neck's op, or a split head's op and the place of
+        this call among its calls."""
+        if m not in self._shared:
+            return m
+        k = self.calls.get(m, 0)
+        self.calls[m] = k + 1
+        return (m, k)
 
     # ops ---------------------------------------------------------------- #
     def window(self, m, x):
         """A conv or max-pool on this rank's columns (the halo path), or on
         the whole width where the level is narrow."""
+        key = self._key(m)
         if self.recording:
-            self.plan[m] = x.shape[-1]
+            self.plan[key] = x.shape[-1]
             return _apply(m, x)
-        g = self.plan[m]
+        g = self.plan[key]
         g_out = _out_width(g, m)
         if self._split(g) and self._split(g_out):
             w, w_out = g // self.size, g_out // self.size
@@ -558,6 +700,20 @@ class SpaceAxis:
         y = _apply(m, self.gather(x, g) if self._split(g)
                    else self._whole(x, g))
         return self.scatter(y) if self._split(g_out) else y
+
+    def group_norm(self, m, x):
+        """A split head's GroupNorm: statistics over every rank's columns
+        where the level is split, the module's own where it is narrow; the
+        affine on the local columns."""
+        key = self._key(m)
+        if self.recording:
+            self.plan[key] = x.shape[-1]
+        if self.recording or not self._split(self.plan[key]):
+            return F.group_norm(x, m.num_groups, m.weight, m.bias, m.eps)
+        xhat = _GroupNormalize.apply(self._local(x, self.plan[key]),
+                                     m.num_groups, m.eps, self)
+        shape = (1, -1, 1, 1)
+        return xhat * m.weight.view(shape) + m.bias.view(shape)
 
     def upsample(self, owner, i: int, x):
         """FPN's nearest 2x upsample of level ``i`` (exact on the local
@@ -577,6 +733,26 @@ class SpaceAxis:
         w = y.shape[-1] // self.size
         return y[..., self.index * w:(self.index + 1) * w]
 
+    def columns(self, images: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of whole ``(B, H, W, 3)`` images."""
+        w = images.shape[2] // self.size
+        if w * self.size != images.shape[2]:
+            raise ValueError(f"{images.shape[2]} columns do not split over "
+                             f"{self.size} space ranks")
+        return images[:, :, self.index * w:(self.index + 1) * w]
+
+    def join(self, levels, featmap_sizes) -> list:
+        """A split head's per-level outputs ``(B, H * w * A, ...)`` whole:
+        the split levels' columns gathered along the width (no gradient)."""
+        out = []
+        for y, (h, w) in zip(levels, featmap_sizes):
+            if self._split(w):
+                grid = y.reshape(y.shape[0], h, w // self.size, -1)
+                whole = torch.cat(group_gather(grid, self.group).unbind(0), 2)
+                y = whole.reshape((y.shape[0], -1) + tuple(y.shape[2:]))
+            out.append(y)
+        return out
+
     def _split(self, g: int) -> bool:
         return g % self.size == 0
 
@@ -594,32 +770,64 @@ class SpaceAxis:
         return x
 
 
+def split_head(model: nn.Module) -> SpaceAxis | None:
+    """The space axis of a model whose head is split over it, else None."""
+    axis = getattr(model, "space_axis", None)
+    return axis if axis is not None and axis.head is not None else None
+
+
+def whole_levels(model: nn.Module, outputs, featmap_sizes) -> tuple:
+    """A head's outputs (a tuple of per-level lists) as one process's: on a
+    split head, each level's columns gathered (``SpaceAxis.join``)."""
+    axis = split_head(model)
+    if axis is None:
+        return outputs
+    return tuple(axis.join(levels, featmap_sizes) for levels in outputs)
+
+
 def partition_spatially(model: nn.Module, mesh) -> nn.Module:
     """Make a built detector width-sharded over the mesh's "space" axis, in
     place, and return it: the backbone's and the neck's convs and max-pools
-    (and FPN's upsample) go through a ``SpaceAxis``; the neck's outputs are
-    gathered whole for the head; loss normalisers and metrics are summed
-    over the data group and each loss is scaled by ``1 / space``
-    (``parallel.set_data_axis``). Each rank is then fed its columns
-    (``shard_batch_spatial``). A mesh with ``space == 1`` leaves the model
-    as it is. One partitioned model trains in a process at a time (the data
-    axis is the process's)."""
+    (and FPN's upsample) go through a ``SpaceAxis``. Each rank is then fed
+    its columns (``shard_batch_spatial``). A mesh with ``space == 1`` leaves
+    the model as it is. One partitioned model trains in a process at a time
+    (the data axis is the process's).
+
+    A head that declares ``splits_over_space`` (RetinaNet's and FCOS's) is
+    split: its convs (and FCOS's GroupNorms) go through the axis too, the
+    neck's outputs stay on each rank's columns, a narrow level's anchors
+    are the first space rank's, each rank's loss is its anchors' part, and
+    normalisers and metrics sum over every rank (``set_data_axis(data
+    group, 1, None)``). Any other head (SSD's, Faster R-CNN's) is gathered:
+    the neck's outputs are gathered whole, normalisers and metrics sum over
+    the data group and each loss is scaled by ``1 / space``
+    (``set_data_axis(data group, space, data group)``)."""
     size = _size(mesh, SPACE_AXIS)
     if size == 1:
         return model
     if getattr(model, "space_axis", None) is not None:
         raise ValueError("the model is partitioned already")
+    from ..models.fcos import GroupNorm
     from ..models.fpn import FPN
     from ..models.resnet import Conv2d, MaxPool2d
 
-    axis = SpaceAxis(mesh, model.backbone, model.neck)
-    for part in (model.backbone, model.neck):
+    head = getattr(model, "bbox_head", None)
+    if not getattr(head, "splits_over_space", False):
+        head = None
+    axis = SpaceAxis(mesh, model.backbone, model.neck, head)
+    for part in (model.backbone, model.neck) + ((head,) if head else ()):
         for m in part.modules():
-            if isinstance(m, (Conv2d, MaxPool2d, FPN)):
+            if isinstance(m, (Conv2d, MaxPool2d, FPN, GroupNorm)):
                 m.space = axis
     model.backbone.register_forward_pre_hook(axis.begin)
     model.neck.register_forward_hook(axis.outputs)
-    set_data_axis(mesh.get_group(DATA_AXIS), size)
+    if head is not None:
+        head.register_forward_pre_hook(axis.head_begin)
+    data = mesh.get_group(DATA_AXIS)
+    if head is not None:
+        set_data_axis(data, 1, None)
+    else:
+        set_data_axis(data, size, data)
     model.space_axis = axis
     return model
 
@@ -647,5 +855,5 @@ def sharded_pairwise_overlaps(b1: torch.Tensor, b2: torch.Tensor, mesh,
     with torch.no_grad():
         local = sph_overlaps(b1[index * rows:(index + 1) * rows], b2,
                              backend, is_aligned=False)
-        out = _all_gather(local, mesh.get_group(DATA_AXIS))
+        out = group_gather(local, mesh.get_group(DATA_AXIS))
     return out.reshape(size * rows, -1)[:n]

@@ -141,6 +141,31 @@ def test_get_flops_against_the_jax_tool(config, shape):
     assert count.bytes > 0
 
 
+@pytest.mark.parametrize("config", [
+    "sph_retinanet_r18_fpn_24e_spherebench.py",
+    "sph_fcos_r50_fpn_120e_indoor360.py"])
+def test_get_flops_counts_the_head_apart(config):
+    """The head's line is ``count_flops`` of the head on the forward's
+    neck outputs."""
+    argv = [os.path.join(REPO, "configs", config), "--shape", "64", "128",
+            "--device", "cpu", "--cfg-options", "model.backbone.depth=18"]
+    said = _said(lambda: flops_cli.main(argv))
+    cfg = apply_overrides(load_config(argv[0]), argv[-1:])
+    cfg["img_size"] = (64, 128)
+    model, _ = get_family(cfg).build(cfg)
+    model.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        x = torch.zeros((1, 64, 128, 3)).to(model.dtype).permute(0, 3, 1, 2)
+        head = flops_cli.count_flops(model.bbox_head,
+                                     model.neck(model.backbone(x))).total
+        total = flops_cli.count_flops(model.eval(),
+                                      torch.zeros((1, 64, 128, 3))).total
+    assert 0 < head < total
+    assert _line(said, "head:") == (
+        f"head:       {head / 1e9:.2f} GFLOPs "
+        f"({100 * head / total:.1f} % of the forward)")
+
+
 @pytest.mark.parametrize("x,w,stride,padding,dilation,groups", [
     ((1, 3, 64, 128), (64, 3, 7, 7), 2, 3, 1, 1),       # the stem
     ((2, 64, 17, 33), (64, 64, 3, 3), 1, 1, 1, 1),     # ragged edges

@@ -12,6 +12,13 @@ subprocess; several ranks are ``test_torch_sharding_ranks.py``'s job).
   as the JAX package's); ``shard_batch_spatial``'s parts of a (4 data x 2
   space) mesh reassemble the batch.
 - The halo of every windowed op, by op, on a port RetinaNet and SSD.
+- ``head_part`` at 512x1024 and 64x128 over 2 and 4 space ranks: each
+  rank's anchors (RetinaNet) and points (FCOS) are disjoint, cover every
+  one once (a narrow level's on rank 0 alone), lie in the rank's columns,
+  and come in the order of the head's own local outputs (the real heads'
+  permute and reshape, fed a grid of indices).
+- The positive gather keeps, of equal weights, the rows ``jax.lax.top_k``
+  keeps (the lower ones).
 - In a gloo group of one (``file://`` store, removed after): a (1, 1) mesh
   leaves the model and the state as they are, a step bit for bit that of
   an unsharded model, and ``sharded_pairwise_overlaps`` is
@@ -24,6 +31,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 from sph_retina_tpu.geometry import generate_boxes
 from sph_retina_tpu.parallel import batch_specs as jax_batch_specs
@@ -33,9 +41,15 @@ from sph_retina_tpu_torch import parallel
 from sph_retina_tpu_torch.engine.builder import build_tx
 from sph_retina_tpu_torch.engine.zoo import get_family, make_generic_train_step
 from sph_retina_tpu_torch.iou.api import sph_overlaps
+from sph_retina_tpu_torch.models.fcos import SphFCOSHead, fcos_config
 from sph_retina_tpu_torch.models.from_flax import to_flax
+from sph_retina_tpu_torch.models.heads.retina_head import SphRetinaHead
 from sph_retina_tpu_torch.models.resnet import Conv2d, MaxPool2d
-from sph_retina_tpu_torch.models.single_stage import SphRetinaNet
+from sph_retina_tpu_torch.models.single_stage import (
+    SphRetinaNet,
+    _pos_gather,
+    retina_config,
+)
 from sph_retina_tpu_torch.models.ssd import SphSSD
 from sph_retina_tpu_torch.utils.config import apply_overrides, load_config
 
@@ -228,3 +242,76 @@ def test_a_mesh_of_one_changes_nothing(tmp_path):
     assert torch.equal(iou, sph_overlaps(b1, b2, "sph2pob_efficient",
                                          is_aligned=False))
     assert iou.shape == (61, 7)
+
+
+def _index_head(family: str, per_cell: int):
+    """The real head with every conv and norm an identity: fed a level's
+    grid of flat indices, it returns them in its own output order."""
+    if family == "retina":
+        head = SphRetinaHead(num_classes=1, box_version=1,
+                             num_base_priors=per_cell, stacked_convs=1)
+        names = ("cls_conv_0", "reg_conv_0", "retina_cls", "retina_reg")
+    else:
+        head = SphFCOSHead(num_classes=1, stacked_convs=1)
+        names = ("cls_conv_0", "cls_gn_0", "reg_conv_0", "reg_gn_0",
+                 "conv_cls", "conv_reg", "conv_centerness")
+    for name in names:
+        setattr(head, name, nn.Identity())
+    return head
+
+
+@pytest.mark.parametrize("img_size", [(512, 1024), (64, 128)])
+@pytest.mark.parametrize("space", [2, 4])
+@pytest.mark.parametrize("family", ["retina", "fcos"])
+def test_head_part_owns_each_anchor_once_in_the_heads_order(family, space,
+                                                            img_size):
+    if family == "retina":
+        cfg = retina_config(3, box_version=5, img_size=img_size)
+        per_cell = cfg.anchor_generator.num_base_anchors
+        centres = cfg.flat_anchors()[:, 0] / 360.0            # of the width
+    else:
+        cfg = fcos_config(3, img_size=img_size)
+        per_cell = 1
+        centres = torch.cat(cfg.level_points()[0])[:, 0] / img_size[1]
+    sizes = cfg.featmap_sizes()
+    total = per_cell * sum(h * w for h, w in sizes)
+    assert centres.shape == (total,)
+    head = _index_head(family, per_cell)
+    grids, off = [], 0
+    for h, w in sizes:
+        grids.append(off + torch.arange(h * w * per_cell, dtype=torch.float32)
+                     .reshape(1, h, w, per_cell).permute(0, 3, 1, 2))
+        off += h * w * per_cell
+    parts = [parallel.head_part(sizes, per_cell, space, r)
+             for r in range(space)]
+    seen = torch.cat([p.indices for p in parts])
+    assert torch.equal(seen.sort().values, torch.arange(total))
+    for r, part in enumerate(parts):
+        # a split level's columns, or a narrow one whole on rank 0 alone
+        local = [g[..., r * (g.shape[-1] // space):
+                   (r + 1) * (g.shape[-1] // space)]
+                 if g.shape[-1] % space == 0 else g for g in grids]
+        kept = part.keep(head(local)[0])
+        got = torch.cat([y.reshape(-1) for y in kept]).long()
+        assert torch.equal(got, part.indices)
+        narrow = [w % space != 0 for _, w in sizes]
+        assert part.levels == tuple(r == 0 or not n for n in narrow)
+        split = torch.cat([torch.full((h * w * per_cell,), w % space == 0)
+                           for h, w in sizes])[part.indices]
+        c = centres[part.indices][split]
+        # centres on a column's left edge, in float32 degrees
+        assert bool(((c >= r / space - 1e-6) & (c < (r + 1) / space)).all())
+    if img_size == (512, 1024):
+        # every level splits: each rank an equal share (K1's input width)
+        assert all(len(p.indices) == total // space for p in parts)
+
+
+@pytest.mark.parametrize("k", [3, 8])
+def test_positive_gather_keeps_the_rows_jax_top_k_keeps(k):
+    """Of equal weights the lower rows, as ``jax.lax.top_k`` keeps them: the
+    rule by which the ranks of a split head keep one process's rows."""
+    w = np.array([0, 1, 1, 0, 2, 1, 1, 0, 1, 2, 0, 1], np.float32)
+    idx, got = _pos_gather(torch.from_numpy(w), k)
+    want, want_idx = jax.lax.top_k(jax.numpy.asarray(w), k)
+    assert idx.tolist() == np.asarray(want_idx).tolist()
+    assert got.tolist() == np.asarray(want).tolist()

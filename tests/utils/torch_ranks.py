@@ -19,9 +19,12 @@ Jobs:
   rank 0 saves the whole gradients (summed over the ranks, before the
   optimiser's clip), the metrics summed over the data group, the whole
   state after the step, each parameter's local shape before and after and
-  the neck outputs' global widths. A run with ``overlaps``
+  the neck outputs' global widths; every rank saves what its assignment
+  saw (K1's input shapes, its anchors, its labels and positives) and the
+  global width of each input of its head's calls. A run with ``overlaps``
   computes ``sharded_pairwise_overlaps`` and the unsharded ``sph_overlaps``
-  instead.
+  instead; a run with ``predict``, the family's ``predict_fn`` on the whole
+  batch's images (each rank cuts its own columns) and no step.
 """
 
 import hashlib
@@ -44,6 +47,7 @@ from sph_retina_tpu_torch.engine.zoo import (  # noqa: E402
     get_family,
     make_generic_train_step,
 )
+from sph_retina_tpu_torch.models import single_stage  # noqa: E402
 from sph_retina_tpu_torch.utils.config import (  # noqa: E402
     apply_overrides,
     load_config,
@@ -118,9 +122,13 @@ def _sharded_run(spec: dict, run: dict, rank: int, world: int) -> dict:
         runner.load_checkpoint(run["load"], model, optimizer)
         return {"model": model.state_dict(),
                 "optimizer": optimizer.state_dict(), "shapes": shapes}
-    step = make_generic_train_step(family, model, det_cfg, optimizer)
     with np.load(model_spec["batch"]) as f:
         full = {k: f[k] for k in f.files if k != "img_id"}
+    if run.get("predict"):
+        got = family.predict_fn(model, det_cfg)(
+            torch.from_numpy(full["images"]))
+        return {"detections": got._asdict()}
+    step = make_generic_train_step(family, model, det_cfg, optimizer)
     synced = {}
     real_step = optimizer.step
 
@@ -131,9 +139,37 @@ def _sharded_run(spec: dict, run: dict, rank: int, world: int) -> dict:
         real_step()
 
     optimizer.step = stepping
-    metrics = parallel.global_metrics(step(parallel.shard_batch_spatial(
-        full, mesh)))
+    seen = {"k1_inputs": [], "assign": []}
+    kernel, targets = single_stage.sph2pob_iou_pairwise, \
+        single_stage.anchor_targets
+
+    def kernel_seen(b1, b2):
+        seen["k1_inputs"].append((tuple(b1.shape), tuple(b2.shape)))
+        return kernel(b1, b2)
+
+    def targets_seen(cfg, anchors, *args, **kwargs):
+        t = targets(cfg, anchors, *args, **kwargs)
+        seen["assign"].append({"anchors": anchors, "labels": t.labels,
+                               "num_pos": int(t.num_pos)})
+        return t
+
+    single_stage.sph2pob_iou_pairwise = kernel_seen
+    single_stage.anchor_targets = targets_seen
+    try:
+        metrics = parallel.global_metrics(step(parallel.shard_batch_spatial(
+            full, mesh)))
+    finally:
+        single_stage.sph2pob_iou_pairwise = kernel
+        single_stage.anchor_targets = targets
     axis = getattr(model, "space_axis", None)
+    if axis is not None:
+        seen["head_widths"] = [g for k, g in axis.plan.items()
+                               if isinstance(k, tuple)
+                               and isinstance(k[0], torch.nn.Module)
+                               and k[0] is getattr(axis.head, "cls_conv_0",
+                                                   None)]
+    torch.save(seen, os.path.join(spec["out_dir"],
+                                  f"{run['name']}_seen{rank}.pt"))
     out = dict(grads=synced,
                metrics={k: float(v) for k, v in metrics.items()},
                params=model.state_dict(),
