@@ -39,7 +39,9 @@ on, ``mfu_experiment``, ``bench_host_pipeline``); the sphere-bench study
 tools (``assign_audit`` on the committed annotations against the published
 audit, ``ap_study --quick``, ``detection_diagnosis``), the dataset
 converters and the torchrun launchers; ``parallel/sharding.py`` (FSDP, the
-width-sharded "space" axis, the row-sharded overlaps); and the IoU tool
+width-sharded "space" axis, the row-sharded overlaps); the video and webcam
+demos on Motion-JPEG ``.avi`` and ``.mp4`` files of the port's own video
+layer; and the IoU tool
 (``benchmark_iou.main``, the kernel and the other backends) — and holds
 every CUDA kernel of those paths against its plain PyTorch version on the
 card.
@@ -251,7 +253,21 @@ Phases, each printing one JSON line; any failure ends the run non-zero:
             FLOPs at batch 1 and steady step ms beside one process's and
             the card's name and power limit, and each run's three largest
             transients of a module's forward in its first step
-24. the kernels' summary line, then the last line
+24. video  the video and webcam demos on the rotated config at full
+            width: 24 960x1920 panoramas written at 30 fps by the port's
+            ``VideoWriter`` as Motion JPEG in ``.avi`` and ``.mp4``;
+            ``video_demo.main`` on the ``.avi`` at ``--batch 8`` and on the
+            ``.mp4`` with ``--max-frames 8``, ``webcam_demo.main --source``
+            the ``.avi`` ``--out DIR --max-frames 8`` (seeded, calibrated
+            weights): each output read back by ``open_video`` with the
+            frame count, 1024x512 and 30 fps, each frame bit for bit the
+            JPEG of its ``show_result`` array and within
+            ``VIDEO_JPEG_TOLERANCE`` of it; ``--camera-id 0``'s ``cannot
+            open camera 0`` where ``/dev/video0`` is missing (else 8 frames
+            from it); K1 once a frame, 40 launches, bitwise on the last NMS
+            input; host ms a frame for read and decode, predict, draw and
+            encode, frames a second end to end
+25. the kernels' summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``
 
 Weights are random, made from ``--seed``; no number printed here says
@@ -328,7 +344,9 @@ from sph_retina_tpu_torch import synth_dataset as synth_cli
 from sph_retina_tpu_torch import test as test_cli
 from sph_retina_tpu_torch import test_robustness as robust_cli
 from sph_retina_tpu_torch import train as train_cli
+from sph_retina_tpu_torch import video_demo as video_cli
 from sph_retina_tpu_torch import vis_kent as kent_cli
+from sph_retina_tpu_torch import webcam_demo as webcam_cli
 from sph_retina_tpu_torch.apis import (
     inference_detector,
     init_detector,
@@ -358,6 +376,7 @@ from sph_retina_tpu_torch.data import (
     prefetch_to_device,
     to_device,
 )
+from sph_retina_tpu_torch.data import video as video_io
 from sph_retina_tpu_torch.data.corruptions import (
     BENCHMARK_CORRUPTIONS,
     corrupt,
@@ -6343,6 +6362,266 @@ def phase_sharding(seed: int, reps: int, smi: str) -> tuple[int, list]:
     return launches, checks
 
 
+VIDEO_FRAMES = 24           # INPUT_SIZE panoramas, written as .avi and .mp4
+VIDEO_FPS = 30.0
+VIDEO_BATCH = 8             # video_demo's default: 3 predict calls of 8
+VIDEO_MAX_FRAMES = 8        # the .mp4 run and the webcam run
+VIDEO_CAMERA = 0            # /dev/video0: its refusal, or 8 frames from it
+# An output frame against show_result's array for it, after one JPEG at
+# quality 95 (4:2:0), on write_panoramas' smooth panoramas at 512x1024 with
+# up to 100 outlines and labels drawn (100 seeded outlines: mean 10.5-11.7
+# levels, PSNR 20.2-20.9 dB; 10: 1.8-2.0, 29.4-30.2 dB; on the CPU). Each
+# frame is also held bit for bit to PIL's decode of PIL's JPEG of that
+# array.
+VIDEO_JPEG_TOLERANCE = {"mean": 16.0, "psnr_db": 18.0}
+
+
+def _jpeg_gap(got: np.ndarray, want: np.ndarray) -> dict:
+    diff = got.astype(np.float64) - want
+    mse = float((diff ** 2).mean())
+    return {"mean": float(np.abs(diff).mean()),
+            "max": float(np.abs(diff).max()),
+            "psnr_db": 10 * math.log10(255.0 ** 2 / mse) if mse else None}
+
+
+def _host_parts(parts: dict, name: str, fn, frames_of=lambda *a: 1):
+    """``fn`` that appends its milliseconds a frame to ``parts[name]``, the
+    card synchronised; ``frames_of(*args)`` frames a call."""
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        n = frames_of(*args)
+        parts.setdefault(name, []).extend(
+            [(time.perf_counter() - t0) * 1e3 / n] * n)
+        return out
+    return wrapper
+
+
+def phase_video(seed: int, reps: int, smi: str) -> tuple[int, dict]:
+    """The video and webcam demos on the rotated config at full width:
+    ``VIDEO_FRAMES`` panoramas at ``INPUT_SIZE`` written at ``VIDEO_FPS``
+    by ``data/video.py:VideoWriter`` as ``.avi`` and as ``.mp4``; a
+    checkpoint of seeded weights, the head calibrated on the first;
+    ``video_demo.main`` on the ``.avi`` at ``--batch 8`` (3 predict calls)
+    and on the ``.mp4`` with ``--max-frames 8``; ``webcam_demo.main
+    --source`` the ``.avi`` ``--out DIR --max-frames 8``; ``--camera-id 0``:
+    its ``cannot open camera 0`` exit where ``/dev/video0`` is missing, else
+    8 frames from it. Gates: each output read back by ``open_video`` with
+    the frame count, size (1024x512) and fps written; each output frame, and
+    each webcam JPEG, bit for bit PIL's decode of PIL's JPEG of the
+    ``show_result`` array recorded for it and within
+    ``VIDEO_JPEG_TOLERANCE`` of that array; a box drawn; K1 once a frame
+    (its counter zeroed before the demos), bitwise its plain version on the
+    last NMS input. Host ms a frame: read and decode, predict, draw,
+    encode. Returns K1's launches and its check."""
+    from PIL import Image
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    cfg = load_config(CONFIG)
+    seconds, parts = {}, {}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        _, img_dir = write_panoramas(tmp, "video", VIDEO_FRAMES,
+                                     cfg["model"]["num_classes"], seed)
+        panoramas = [np.asarray(Image.open(os.path.join(img_dir, n))
+                                .convert("RGB"))
+                     for n in sorted(os.listdir(img_dir))]
+        h, w = INPUT_SIZE
+        inputs, containers = {}, {}
+        for suffix in ("avi", "mp4"):
+            inputs[suffix] = os.path.join(tmp, f"in.{suffix}")
+            t0 = time.perf_counter()
+            with video_io.VideoWriter(inputs[suffix], VIDEO_FPS,
+                                      (w, h)) as writer:
+                for frame in panoramas:
+                    writer.write(frame)
+            seconds[f"write_{suffix}"] = time.perf_counter() - t0
+            with video_io.open_video(inputs[suffix]) as r:
+                containers[suffix] = {
+                    "bytes": os.path.getsize(inputs[suffix]),
+                    "frames": r.frame_count, "size": list(r.size),
+                    "fps": r.fps}
+            if containers[suffix]["frames"] != VIDEO_FRAMES \
+                    or r.size != (w, h) or r.fps != VIDEO_FPS:
+                raise AssertionError(f"{suffix} written: {containers}")
+
+        det = init_detector(CONFIG, seed=seed)
+        det.model.load_state_dict(seeded_state_dict(det.model, seed))
+        assert_full_width(det)
+        head_std = calibrate_head(det, det.pipeline.resize(panoramas[0]))
+        ckpts = os.path.join(tmp, "ckpts")
+        runner.Checkpointer(ckpts).save(
+            det.model, build_tx(cfg, det.model, steps_per_epoch=1), epoch=1)
+        del det
+
+        shown, nms_calls = [], []
+        real = (video_cli.inference_detector, webcam_cli.inference_detector,
+                video_cli.show_result, webcam_cli.show_result,
+                video_io.decode_jpeg, video_io.encode_jpeg,
+                nms_module.sph2pob_iou_pairwise)
+
+        boxes_drawn = []
+
+        def drawn(fn):
+            def wrapper(det, img, result, score_thr=0.3, **kwargs):
+                out = fn(det, img, result, score_thr=score_thr, **kwargs)
+                shown.append(out.copy())
+                boxes_drawn.append(sum(int((r[:, -1] >= score_thr).sum())
+                                       for r in result))
+                return out
+            return wrapper
+
+        predict = _host_parts(parts, "predict", real[0],
+                              lambda det, imgs: len(imgs))
+        draw = drawn(_host_parts(parts, "draw", real[2]))
+        video_cli.inference_detector = predict
+        webcam_cli.inference_detector = _host_parts(parts, "predict",
+                                                    real[1])
+        video_cli.show_result = webcam_cli.show_result = draw
+        video_io.decode_jpeg = _host_parts(parts, "read_decode", real[4])
+        video_io.encode_jpeg = _host_parts(parts, "encode", real[5])
+        nms_module.sph2pob_iou_pairwise = _recording(
+            sph2pob_iou_pairwise, nms_calls, keep_last=True)
+        runs, said = {}, {}
+        try:
+            sph2pob_iou_pairwise.launches = 0
+            for name, entry, argv, n in (
+                    ("video_demo_avi", video_cli.main,
+                     [inputs["avi"], CONFIG, ckpts, "--out",
+                      os.path.join(tmp, "out.avi"), "--batch",
+                      str(VIDEO_BATCH)], VIDEO_FRAMES),
+                    ("video_demo_mp4", video_cli.main,
+                     [inputs["mp4"], CONFIG, ckpts, "--out",
+                      os.path.join(tmp, "out.mp4"), "--max-frames",
+                      str(VIDEO_MAX_FRAMES)], VIDEO_MAX_FRAMES),
+                    ("webcam_demo", webcam_cli.main,
+                     [CONFIG, ckpts, "--source", inputs["avi"], "--out",
+                      os.path.join(tmp, "shots"), "--max-frames",
+                      str(VIDEO_MAX_FRAMES)], VIDEO_MAX_FRAMES)):
+                before, first = sph2pob_iou_pairwise.launches, len(shown)
+                said[name], t = _timed(lambda: _said(lambda: entry(argv)))
+                torch.cuda.synchronize()
+                runs[name] = {"frames": n, "seconds": t,
+                              "frames_per_second": n / t,
+                              "kernel_launches":
+                              sph2pob_iou_pairwise.launches - before,
+                              "shown": (first, len(shown))}
+            camera = f"/dev/video{VIDEO_CAMERA}"
+            shots0 = os.path.join(tmp, "camera")
+            argv = [CONFIG, ckpts, "--camera-id", str(VIDEO_CAMERA), "--out",
+                    shots0, "--max-frames", str(VIDEO_MAX_FRAMES)]
+            if os.path.exists(camera):
+                before = sph2pob_iou_pairwise.launches
+                said["camera"] = _said(lambda: webcam_cli.main(argv))
+                torch.cuda.synchronize()
+                runs["camera"] = {"device": camera,
+                                  "kernel_launches":
+                                  sph2pob_iou_pairwise.launches - before}
+            else:
+                try:
+                    webcam_cli.main(argv)
+                except SystemExit as e:
+                    said["camera"] = str(e)
+                if said.get("camera") != f"cannot open camera {VIDEO_CAMERA}" \
+                        or os.path.exists(shots0):
+                    raise AssertionError(f"--camera-id {VIDEO_CAMERA} "
+                                         f"without {camera}: "
+                                         f"{said.get('camera')!r}")
+                runs["camera"] = {"device": f"{camera} is missing",
+                                  "exit": said["camera"]}
+            launches = sph2pob_iou_pairwise.launches
+        finally:
+            (video_cli.inference_detector, webcam_cli.inference_detector,
+             video_cli.show_result, webcam_cli.show_result,
+             video_io.decode_jpeg, video_io.encode_jpeg,
+             nms_module.sph2pob_iou_pairwise) = real
+
+        # the outputs read back, each frame against its show_result array
+        gaps, outputs = [], {}
+        out_size = tuple(reversed(cfg["img_size"]))  # (1024, 512)
+        for name, path in (("video_demo_avi", "out.avi"),
+                           ("video_demo_mp4", "out.mp4")):
+            first, last = runs[name]["shown"]
+            with video_io.open_video(os.path.join(tmp, path)) as r:
+                outputs[name] = {"frames": r.frame_count, "size": list(r.size),
+                                 "fps": r.fps,
+                                 "bytes": os.path.getsize(
+                                     os.path.join(tmp, path))}
+                frames = list(r)
+            if (r.frame_count, r.size, r.fps) != (
+                    runs[name]["frames"], out_size, VIDEO_FPS) \
+                    or last - first != r.frame_count:
+                raise AssertionError(f"{name}: {outputs[name]}, "
+                                     f"{last - first} frames drawn")
+            for got, want in zip(frames, shown[first:last]):
+                gaps.append(_held_to_jpeg(got, want, name))
+        first, last = runs["webcam_demo"]["shown"]
+        names = sorted(os.listdir(os.path.join(tmp, "shots")))
+        if names != [f"frame_{i:06d}.jpg"
+                     for i in range(1, VIDEO_MAX_FRAMES + 1)] \
+                or last - first != VIDEO_MAX_FRAMES:
+            raise AssertionError(f"webcam_demo wrote {names}")
+        for name, want in zip(names, shown[first:last]):
+            got = np.asarray(Image.open(os.path.join(tmp, "shots", name)))
+            gaps.append(_held_to_jpeg(got, want, f"webcam_demo {name}"))
+        outputs["webcam_demo"] = {"files": len(names),
+                                  "size": list(shown[first].shape)}
+    expected = VIDEO_FRAMES + 2 * VIDEO_MAX_FRAMES + runs["camera"].get(
+        "kernel_launches", 0)
+    short = {k: r["kernel_launches"] for k, r in runs.items()
+             if "frames" in r and r["kernel_launches"] != r["frames"]}
+    if launches != expected or short:
+        raise AssertionError(f"K1: {launches} launches, expected {expected} "
+                             f"(one a frame); runs off: {short}")
+    if not said["video_demo_avi"].endswith(
+            f"\n{VIDEO_FRAMES} frames -> {os.path.join(tmp, 'out.avi')}\n"):
+        raise AssertionError(f"video_demo said {said['video_demo_avi']!r}")
+    if not sum(boxes_drawn):
+        raise AssertionError("no box was drawn on any frame")
+    (shapes, b1, b2), = nms_calls
+    on_input = {"input": "video: the last NMS input of webcam_demo",
+                **check_kernel(KERNELS[0], b1, b2, reps, identical=False)}
+    if not on_input["bitwise_equal"] or shapes[1][1] != 5:
+        raise AssertionError(f"K1 at {shapes} differs from its plain "
+                             f"version by {on_input['max_abs_err']}")
+    for r in runs.values():
+        r.pop("shown", None)
+    emit({"phase": "video", "config": os.path.relpath(CONFIG, ROOT),
+          "input_size": list(INPUT_SIZE), "fps": VIDEO_FPS,
+          "containers": containers, "runs": runs, "outputs": outputs,
+          "head_std_before_calibration": head_std,
+          "host_ms_a_frame_median": {k: statistics.median(v)
+                                     for k, v in parts.items()},
+          "host_ms_a_frame_max": {k: max(v) for k, v in parts.items()},
+          "frames_timed": {k: len(v) for k, v in parts.items()},
+          "boxes_drawn_a_frame": [min(boxes_drawn), max(boxes_drawn)],
+          "jpeg_gap_worst": {
+              "mean": max(g["mean"] for g in gaps),
+              "max": max(g["max"] for g in gaps),
+              "psnr_db": min((g["psnr_db"] for g in gaps
+                              if g["psnr_db"] is not None), default=None)},
+          "jpeg_tolerance": VIDEO_JPEG_TOLERANCE,
+          "kernel_launches": launches, "kernel_on_nms_input": on_input,
+          "nvidia_smi": smi, "seconds": seconds,
+          "phase_seconds": time.perf_counter() - t_phase})
+    return launches, on_input
+
+
+def _held_to_jpeg(got: np.ndarray, shown: np.ndarray, what: str) -> dict:
+    """A decoded output frame: bit for bit PIL's decode of PIL's JPEG of
+    the ``show_result`` array, and within ``VIDEO_JPEG_TOLERANCE`` of it."""
+    if not np.array_equal(got, video_io.decode_jpeg(
+            video_io.encode_jpeg(shown))):
+        raise AssertionError(f"{what}: not the JPEG of show_result's array")
+    gap = _jpeg_gap(got, shown)
+    if gap["mean"] > VIDEO_JPEG_TOLERANCE["mean"] or (
+            gap["psnr_db"] or math.inf) < VIDEO_JPEG_TOLERANCE["psnr_db"]:
+        raise AssertionError(f"{what}: {gap} from show_result's array")
+    return gap
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -6417,6 +6696,8 @@ def main(argv=None) -> int:
     launches["sph2pob_iou_pairwise"] += trained
     trained, on_sharding_inputs = phase_sharding(args.seed, args.reps, smi)
     launches["sph2pob_iou_pairwise"] += trained
+    trained, on_video_input = phase_video(args.seed, args.reps, smi)
+    launches["sph2pob_iou_pairwise"] += trained
     # K1 on the inputs its paths gave it, beside its seeded shapes
     shapes["sph2pob_iou_pairwise"] += [on_nms_input, on_assign_input,
                                        on_iou_input, on_ssd_input,
@@ -6424,7 +6705,8 @@ def main(argv=None) -> int:
                                        on_input_assign, on_pretrained_assign,
                                        *on_parallel_inputs, on_robust_input,
                                        on_demo_input, *on_measure_inputs,
-                                       *on_study_inputs, *on_sharding_inputs]
+                                       *on_study_inputs, *on_sharding_inputs,
+                                       on_video_input]
     idle = [k.name for k in KERNELS if launches[k.name] < 1]
     if idle:
         raise AssertionError(f"no main path launched {idle}")

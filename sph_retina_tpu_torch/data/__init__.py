@@ -8,6 +8,7 @@ from .loader import (
 )
 from .pipeline import SphPipeline, maybe_normalize_images
 from .policy import resolve_transfer_colorspace
+from .video import VideoWriter, open_video
 
 __all__ = [
     "DataLoader",
@@ -15,8 +16,10 @@ __all__ = [
     "PinnedStaging",
     "SphCocoDataset",
     "SphPipeline",
+    "VideoWriter",
     "make_synthetic_dataset",
     "maybe_normalize_images",
+    "open_video",
     "resolve_transfer_colorspace",
     "prefetch_to_device",
     "to_device",
